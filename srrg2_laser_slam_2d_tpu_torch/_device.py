@@ -22,3 +22,19 @@ def resolve_device(device=None) -> torch.device:
             )
         device = "cuda"
     return torch.device(device)
+
+
+def card_description(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them (every
+    measurement is written down beside them); ``"cpu"`` for the host."""
+    if device.type != "cuda":
+        return str(device)
+    import subprocess
+
+    # matched by UUID: under CUDA_VISIBLE_DEVICES torch's index is not nvidia-smi's
+    uuid = f"GPU-{torch.cuda.get_device_properties(device).uuid}"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    cards = dict(line.split(", ", 1) for line in out.strip().splitlines())
+    return cards[uuid]

@@ -20,7 +20,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops import projector as projector_op
-from ..ops.frame_kernel import FrameSpec, frame_step
+from ..ops.frame_kernel import FrameSpec, frame_step, track_frames_grid
 from ..utils import cloud as cloud_op
 from ..utils import geometry
 from ..utils.cloud import Cloud
@@ -224,3 +224,12 @@ class FastTracker:
         self.state = self.state._replace(cacheT=cacheT, pose=pose)
         self._pending.append(payload)
         return payload[6, :7]
+
+
+def track_sequence_fast(spec: FrameSpec, state: FastState, measF_stack: torch.Tensor):
+    """Bulk sequential tracking: the whole [T, 8, B] stack as one launch of
+    the frame kernel, the scene materialized once at the end. Returns
+    (state', stats [T, 7])."""
+    cacheT, pose, payloads = track_frames_grid(spec, state.cacheT, state.pose, measF_stack)
+    scene = materialize(spec, state.scene, payloads, pose[0, 7])
+    return FastState(cacheT=cacheT, pose=pose, scene=scene), payloads[:, 6, :7]

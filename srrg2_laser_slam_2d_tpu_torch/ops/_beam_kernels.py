@@ -98,22 +98,31 @@ def window_start(i: int, cols_padded: int, window: int = WINDOW) -> int:
     return min(max(i * 128 - (window - 128) // 2, 0), cols_padded - window)
 
 
-def banded_stats(canvasT: torch.Tensor, f: dict, cols_padded: int,
-                 point_distance: float, normal_cos: float, chi_threshold: float,
-                 window: int = WINDOW) -> torch.Tensor:
-    """Banded match of moving lanes against the canvas and the normal-
-    equation reduction. Lane r (block r // 128) matches the canvas column
-    col_i[r] only while it lies in the block's window (the Pallas one-hot
-    gather finds nothing outside it). Returns [13] sums: h00 h01 h02 h11
-    h12 h22 b0 b1 b2 n_ok chi_sum inl_chi inl_count."""
-    B = f["px"].shape[-1]
-    dev = canvasT.device
-    nb = B // 128
-    w0 = torch.tensor([window_start(i, cols_padded, window) for i in range(nb)],
-                      device=dev).repeat_interleave(128)
-    local = f["col_i"] - w0
-    hot = f["okp"] & (local >= 0) & (local < window)
-    gath = canvasT[:6, torch.where(hot, f["col_i"], 0)] * hot.to(torch.float32)
+def window_hot(f: dict, cols_padded: int, window: int = WINDOW) -> torch.Tensor:
+    """The one-hot gather's band: lane r (block r // 128) matches the canvas
+    column col_i[r] only while it lies in the block's window (the Pallas
+    one-hot gather finds nothing outside it)."""
+    col_i = f["col_i"]
+    w0 = torch.tensor([window_start(i, cols_padded, window)
+                       for i in range(col_i.shape[-1] // 128)],
+                      device=col_i.device).repeat_interleave(128)
+    local = col_i - w0
+    return f["okp"] & (local >= 0) & (local < window)
+
+
+def gather_canvas(canvas: torch.Tensor, f: dict, hot: torch.Tensor) -> torch.Tensor:
+    """Canvas rows 0-5 at each lane's beam, zero where the lane is not hot
+    (what the Pallas gathers return for an unmatched lane). canvas
+    [8, ..., B] -> [6, ..., B]."""
+    idx = torch.where(hot, f["col_i"], torch.zeros_like(f["col_i"]))
+    return torch.gather(canvas[:6], -1, idx.expand((6,) + idx.shape)) * hot.to(torch.float32)
+
+
+def match_terms(gath: torch.Tensor, f: dict, point_distance: float, normal_cos: float,
+                chi_threshold: float) -> torch.Tensor:
+    """The 13 normal-equation terms per lane from gathered canvas cells
+    [6, ..., B] -> [13, ..., B]: h00 h01 h02 h11 h12 h22 b0 b1 b2 n_ok
+    chi_sum inl_chi inl_count."""
     bmin, bfx, bfy, bfnx, bfny, bhas = gath
     px_b, py_b, d_b, nx_b, ny_b = f["px"], f["py"], f["d"], f["nx"], f["ny"]
 
@@ -135,18 +144,27 @@ def banded_stats(canvasT: torch.Tensor, f: dict, cols_padded: int,
     sn2 = nx_b * nx_b + ny_b * ny_b
     thr = chi_threshold if chi_threshold > 0 else _BIG
     inl = okf * (chi < thr).to(torch.float32)
-    terms = torch.stack([
+    return torch.stack([
         w * bfnx * bfnx, w * bfnx * bfny, w * bfnx * j1c,
         w * bfny * bfny, w * bfny * j1c, w * (j1c * j1c + sn2),
         w * bfnx * e1, w * bfny * e1,
         w * (j1c * e1 - ny_b * e2 + nx_b * e3),
         okf, okf * chi, inl * chi, inl,
     ])
-    # per-128-lane-block accumulation, then the lane sum (the Pallas order)
-    acc = torch.zeros(13, 128, device=dev)
-    for i in range(nb):
-        acc = acc + terms[:, i * 128:(i + 1) * 128]
-    return acc.sum(dim=1)
+
+
+def banded_stats(canvas: torch.Tensor, f: dict, cols_padded: int,
+                 point_distance: float, normal_cos: float, chi_threshold: float,
+                 window: int = WINDOW) -> torch.Tensor:
+    """Banded match of moving lanes [..., B] against the canvas [8, ..., B]
+    and the normal-equation reduction -> [13, ...] sums, accumulated per
+    128-lane block and then over the lanes (the Pallas order)."""
+    terms = match_terms(gather_canvas(canvas, f, window_hot(f, cols_padded, window)), f,
+                        point_distance, normal_cos, chi_threshold)
+    acc = torch.zeros(terms.shape[:-1] + (128,), device=terms.device)
+    for i in range(terms.shape[-1] // 128):
+        acc = acc + terms[..., i * 128:(i + 1) * 128]
+    return acc.sum(dim=-1)
 
 
 def add_odom_prior(sums9, T, prior, odom_weight: float):
@@ -185,19 +203,70 @@ def beam_zbuffer_by_shifts(vals: torch.Tensor, d: torch.Tensor,
     col_i[r], counted only while |col_i - r| <= max_shift. The closest depth
     wins; on equal depths the HIGHEST source lane wins (the Pallas kernel
     enumerates shifts -max..+max with out[b] = x[b - s], and the first
-    shift to win is the one from the highest lane). ``vals`` [K, B] rows
-    ride along to the winning beam. Returns (smin [B], svals [K, B], s_ok)."""
+    shift to win is the one from the highest lane). ``vals`` [V, ..., B] rows
+    ride along to the winning beam; d, col_i and okp are [..., B] (leading
+    dimensions batch independent streams). Returns (smin [..., B],
+    svals [V, ..., B], s_ok)."""
     B = d.shape[-1]
     dev = d.device
-    lane = torch.arange(B, device=dev)
+    lane = torch.arange(B, device=dev).expand(d.shape)
     elig = okp & (torch.abs(col_i - lane) <= max_shift)
     tgt = torch.where(elig, col_i, torch.full_like(col_i, B))
-    smin = torch.full((B + 1,), _BIG, device=dev).scatter_reduce(
-        0, tgt, torch.where(elig, d, torch.full_like(d, _BIG)), "amin")[:B]
+    smin = torch.full(d.shape[:-1] + (B + 1,), _BIG, device=dev).scatter_reduce(
+        -1, tgt, torch.where(elig, d, torch.full_like(d, _BIG)), "amin")[..., :B]
     s_ok = smin < _BIG
-    hit = elig & (d <= smin[col_i.clamp(0, B - 1)])
-    win = torch.full((B + 1,), -1, dtype=torch.int64, device=dev).scatter_reduce(
-        0, torch.where(hit, tgt, torch.full_like(tgt, B)),
-        torch.where(hit, lane, torch.full_like(lane, -1)), "amax")[:B]
-    svals = torch.where(s_ok, vals[:, win.clamp(min=0)], torch.zeros_like(vals))
+    hit = elig & (d <= torch.gather(smin, -1, col_i.clamp(0, B - 1)))
+    win = torch.full(d.shape[:-1] + (B + 1,), -1, dtype=torch.int64,
+                     device=dev).scatter_reduce(
+        -1, torch.where(hit, tgt, torch.full_like(tgt, B)),
+        torch.where(hit, lane, torch.full_like(lane, -1)), "amax")[..., :B]
+    picked = torch.gather(vals, -1, win.clamp(min=0).expand(vals.shape))
+    svals = torch.where(s_ok, picked, torch.zeros_like(vals))
     return smin, svals, s_ok
+
+
+def merge_lanes(canvas: torch.Tensor, smin: torch.Tensor, svals: torch.Tensor,
+                s_ok: torch.Tensor, count: torch.Tensor, merge_range: float,
+                merge_threshold: float, cap: float) -> dict:
+    """The lean merge decision per beam: the measurement canvas [8, ..., B]
+    against the z-buffered scene cells (``beam_zbuffer_by_shifts`` of the
+    rows px, py, nx, ny, scene row). A beam merges with its cell (depths
+    within ``merge_threshold``; the two are averaged), replaces it (the cell
+    is closer), or appends at the next free scene row after ``count``
+    (broadcastable to the lanes) below ``cap``. Returns the masks ``m_ok``,
+    ``modify``, ``do_append`` and ``app_ok``, the beam's point ``upd`` (px,
+    py, nx, ny; sensor frame), its payload ``target`` row and ``kind`` (0
+    none / 1 modify / 2 append), and the post-merge visible cell per beam
+    ``cache`` (x, y, nx, ny, valid, scene row)."""
+    spx, spy, snx, sny, srow = svals
+    fmin, bfx, bfy, bfnx, bfny, fhas = canvas[:6]
+    m_ok = (fhas > 0.5) & (fmin <= merge_range)
+    dr = fmin - smin
+    both = m_ok & s_ok
+    do_merge = both & (torch.abs(dr) < merge_threshold)
+    do_replace = both & ~do_merge & (dr > 0)
+    do_append = (m_ok & ~s_ok) | (both & ~do_merge & ~do_replace)
+    modify = do_merge | do_replace
+
+    avg_px, avg_py = 0.5 * (spx + bfx), 0.5 * (spy + bfy)
+    avg_nx, avg_ny = 0.5 * (snx + bfnx), 0.5 * (sny + bfny)
+    nrm = torch.clamp(torch.sqrt(avg_nx * avg_nx + avg_ny * avg_ny), min=1e-12)
+    avg_nx, avg_ny = avg_nx / nrm, avg_ny / nrm
+    upd_px = torch.where(do_merge, avg_px, bfx)
+    upd_py = torch.where(do_merge, avg_py, bfy)
+    upd_nx = torch.where(do_merge, avg_nx, bfnx)
+    upd_ny = torch.where(do_merge, avg_ny, bfny)
+
+    neg1 = torch.full_like(fmin, -1.0)
+    slot = count + lane_prefix_sum(do_append.to(torch.float32)) - 1.0
+    app_ok = do_append & (slot < cap)
+    target = torch.where(modify, srow, torch.where(app_ok, slot, neg1))
+    kind = torch.where(modify, 1.0, torch.where(app_ok, 2.0, 0.0))
+
+    nrow = torch.where(modify, srow, torch.where(
+        app_ok, slot, torch.where(s_ok & ~m_ok, srow, neg1)))
+    nvalid = ((m_ok | s_ok) & (nrow >= 0)).to(torch.float32)
+    cache = (torch.where(m_ok, upd_px, spx), torch.where(m_ok, upd_py, spy),
+             torch.where(m_ok, upd_nx, snx), torch.where(m_ok, upd_ny, sny), nvalid, nrow)
+    return dict(m_ok=m_ok, modify=modify, do_append=do_append, app_ok=app_ok,
+                upd=(upd_px, upd_py, upd_nx, upd_ny), target=target, kind=kind, cache=cache)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+Each ``csrc/<name>.cu`` has a plain C interface (the frame kernels share
+the device functions of ``csrc/frame_common.cuh``) and is compiled by ``nvcc``
 into ``build/torch_kernels/lib<name>.so`` at the repository root, then
 loaded with ``ctypes``. A build takes seconds; nothing here runs at import
 time. The C entry points return a ``cudaError_t`` (0 = success).
@@ -19,7 +20,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-KERNELS = ("frame_kernel", "nn_icp_kernel")
+KERNELS = ("frame_kernel", "nn_icp_kernel", "stream_kernel")
 
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # operation as the plain PyTorch versions do (one kernel per operation)
@@ -30,6 +31,7 @@ _VOID = ctypes.c_void_p
 _SIGNATURES = {
     "frame_kernel": {"frame_track_grid": [_VOID] * 6 + [ctypes.c_void_p, _VOID]},
     "nn_icp_kernel": {"nn_icp_align_pairs": [_VOID] * 5 + [ctypes.c_void_p, _VOID]},
+    "stream_kernel": {"stream_track_grid": [_VOID] * 7 + [ctypes.c_void_p, _VOID]},
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 

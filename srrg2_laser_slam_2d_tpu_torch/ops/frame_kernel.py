@@ -33,8 +33,6 @@ from . import _beam_kernels as bk
 from . import _cuda
 from .projector import PolarProjection
 
-_BIG = 1.0e30
-
 # launches of the CUDA kernel (reset by callers that count a run)
 launches = 0
 
@@ -57,6 +55,13 @@ class FrameSpec:
     meas_as_canvas: bool = True
     # in-kernel local-map split when |X'| reaches this distance (0 = off)
     split_distance: float = 0.0
+    # K-stream kernel (ops/stream_kernel.py) only; this kernel ignores them.
+    # Gather band: "onehot" matches a beam inside the window of the lane's
+    # 128-beam block, "roll" within +-stream_band_shift beams of the lane.
+    stream_gather: str = "onehot"
+    stream_band_shift: int = 64
+    # Gauss-Newton updates per canvas gather (1 = gather at every update)
+    corr_refresh: int = 1
 
     @property
     def cols_padded(self) -> int:
@@ -132,33 +137,12 @@ def _frame_body_plain(spec: FrameSpec, canvasT, odomF, cacheT, pose):
     vals = torch.stack([f["px"], f["py"], f["nx"], f["ny"], crow])
     smin, svals, s_ok = bk.beam_zbuffer_by_shifts(
         vals, f["d"], f["col_i"], f["okp"] & (crow >= 0), spec.merge_shift)
-    spx, spy, snx, sny, srow = svals
-
-    fmin, bfx, bfy, bfnx, bfny, fhas = canvasT[0], canvasT[1], canvasT[2], canvasT[3], canvasT[4], canvasT[5]
-    m_ok = (fhas > 0.5) & (fmin <= 0.9 * proj.range_max)
-    dr = fmin - smin
-    both = m_ok & s_ok
-    do_merge = both & (torch.abs(dr) < spec.merge_threshold)
-    do_replace = both & ~do_merge & (dr > 0)
-    do_append = (m_ok & ~s_ok) | (both & ~do_merge & ~do_replace)
-    modify = do_merge | do_replace
-
-    avg_px, avg_py = 0.5 * (spx + bfx), 0.5 * (spy + bfy)
-    avg_nx, avg_ny = 0.5 * (snx + bfnx), 0.5 * (sny + bfny)
-    nrm = torch.clamp(torch.sqrt(avg_nx * avg_nx + avg_ny * avg_ny), min=1e-12)
-    avg_nx, avg_ny = avg_nx / nrm, avg_ny / nrm
-    upd_px = torch.where(do_merge, avg_px, bfx)
-    upd_py = torch.where(do_merge, avg_py, bfy)
-    upd_nx = torch.where(do_merge, avg_nx, bfnx)
-    upd_ny = torch.where(do_merge, avg_ny, bfny)
-
-    neg1 = torch.full_like(fmin, -1.0)
-    appf = do_append.to(torch.float32)
-    slot = count + bk.lane_prefix_sum(appf) - 1.0
-    app_ok = do_append & (slot < cap)
-    n_app = appf.sum()
-    target = torch.where(modify, srow, torch.where(app_ok, slot, neg1))
-    kind = torch.where(modify, 1.0, torch.where(app_ok, 2.0, 0.0))
+    mg = bk.merge_lanes(canvasT, smin, svals, s_ok, count, 0.9 * proj.range_max,
+                        spec.merge_threshold, cap)
+    m_ok, app_ok, target, kind = mg["m_ok"], mg["app_ok"], mg["target"], mg["kind"]
+    upd_px, upd_py, upd_nx, upd_ny = mg["upd"]
+    ncx, ncy, nnx, nny, nvalid, nrow = mg["cache"]
+    n_app = mg["do_append"].to(torch.float32).sum()
 
     X_new = bk.compose_s(X_old, bk.inverse_s(bk.compose_s(S, T)))
     M = bk.compose_s(X_new, S)
@@ -167,20 +151,13 @@ def _frame_body_plain(spec: FrameSpec, canvasT, odomF, cacheT, pose):
     pay_y = sM * upd_px + cM * upd_py + M[1]
     pay_nx = cM * upd_nx - sM * upd_ny
     pay_ny = sM * upd_nx + cM * upd_ny
-
-    ncx = torch.where(m_ok, upd_px, spx)
-    ncy = torch.where(m_ok, upd_py, spy)
-    nnx = torch.where(m_ok, upd_nx, snx)
-    nny = torch.where(m_ok, upd_ny, sny)
-    nrow = torch.where(modify, srow, torch.where(
-        app_ok, slot, torch.where(s_ok & ~m_ok, srow, neg1)))
-    nvalid = ((m_ok | s_ok) & (nrow >= 0)).to(torch.float32)
     count_new = torch.clamp(count + n_app, max=cap)
 
     do_split = torch.zeros((), device=dev)
     if spec.split_distance > 0:
         do_split = (torch.sqrt(X_new[0] * X_new[0] + X_new[1] * X_new[1])
                      >= spec.split_distance).to(torch.float32)
+        bfx, bfy, bfnx, bfny = canvasT[1], canvasT[2], canvasT[3], canvasT[4]
         seedf = m_ok.to(torch.float32)
         seed_slot = bk.lane_prefix_sum(seedf) - 1.0   # not capped (as in Pallas)
         seed_count = torch.clamp(seedf.sum(), max=cap)
@@ -189,7 +166,7 @@ def _frame_body_plain(spec: FrameSpec, canvasT, odomF, cacheT, pose):
         pay_y = torch.where(sp, sS * bfx + cS * bfy + S[1], pay_y)
         pay_nx = torch.where(sp, cS * bfnx - sS * bfny, pay_nx)
         pay_ny = torch.where(sp, sS * bfnx + cS * bfny, pay_ny)
-        seed_target = torch.where(m_ok, seed_slot, neg1)
+        seed_target = torch.where(m_ok, seed_slot, torch.full_like(seed_slot, -1.0))
         target = torch.where(sp, seed_target, target)
         kind = torch.where(sp, torch.where(m_ok, 2.0, 0.0), kind)
         ncx = torch.where(sp, bfx, ncx)
@@ -235,13 +212,15 @@ def track_frames_grid_plain(spec: FrameSpec, cacheT, pose, measC):
 # ------------------------------------------------------------ CUDA kernel
 
 class _FrameParams(ctypes.Structure):
-    """Mirror of ``FrameParams`` in csrc/frame_kernel.cu."""
+    """Mirror of ``FrameParams`` in csrc/frame_common.cuh."""
 
     _fields_ = [
         ("T", ctypes.c_int), ("B", ctypes.c_int), ("cols", ctypes.c_int),
         ("iterations", ctypes.c_int), ("merge_shift", ctypes.c_int),
         ("window", ctypes.c_int), ("use_prior", ctypes.c_int),
         ("use_split", ctypes.c_int),
+        ("K", ctypes.c_int), ("gather_roll", ctypes.c_int),
+        ("band_shift", ctypes.c_int), ("corr_refresh", ctypes.c_int),
         ("f", ctypes.c_float), ("c", ctypes.c_float),
         ("range_min", ctypes.c_float), ("range_max", ctypes.c_float),
         ("merge_range", ctypes.c_float), ("cap", ctypes.c_float),
@@ -252,12 +231,14 @@ class _FrameParams(ctypes.Structure):
     ]
 
 
-def _params(spec: FrameSpec, T: int) -> _FrameParams:
+def _params(spec: FrameSpec, T: int, K: int = 1) -> _FrameParams:
     p = spec.projection
     return _FrameParams(
         T=T, B=spec.cols_padded, cols=p.cols, iterations=spec.iterations,
         merge_shift=spec.merge_shift, window=spec.window,
         use_prior=int(spec.odom_weight > 0), use_split=int(spec.split_distance > 0),
+        K=K, gather_roll=int(spec.stream_gather == "roll"),
+        band_shift=spec.stream_band_shift, corr_refresh=max(int(spec.corr_refresh), 1),
         f=p.f, c=p.c, range_min=p.range_min, range_max=p.range_max,
         merge_range=0.9 * p.range_max, cap=float(spec.scene_capacity),
         point_distance=spec.point_distance, normal_cos=spec.normal_cos,

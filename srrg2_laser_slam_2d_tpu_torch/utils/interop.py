@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
 ``state_from_numpy`` takes the JAX package's ``FastState`` (cacheT, pose,
-scene), ``Cloud``, ``PoseGraph`` or a pose array, with every leaf given as
-something ``numpy.asarray`` accepts, and returns the port's counterpart as
-tensors on one device. The structures are recognised by their field names,
+scene), ``Cloud``, ``PoseGraph`` or a plain array (a pose, the K-stream
+kernel's batched ``cacheB`` / ``poseB`` state, a measurement or odometry
+stack), with every leaf given as something ``numpy.asarray`` accepts, and
+returns the port's counterpart as tensors on one device. The structures are recognised by their field names,
 so this module needs nothing of the JAX package. Tests use it to start both
 implementations from the same state.
 """
@@ -33,7 +34,8 @@ def _tensor(x, dtype, device) -> torch.Tensor:
 
 def state_from_numpy(obj, device="cpu"):
     """The port's tensors for ``obj`` on ``device``: a FastState, Cloud or
-    PoseGraph for the structures of the same name, else a float32 tensor."""
+    PoseGraph for the structures of the same name, else a float32 tensor
+    (any array: a pose, a batched stream state, a measurement stack)."""
     fields = getattr(obj, "_fields", None)
     if fields is None:
         return _tensor(obj, _FLOAT, device)

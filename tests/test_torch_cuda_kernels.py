@@ -24,6 +24,7 @@ from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import (
     LaserModel, PreprocessorConfig, ScanPreprocessor)
 from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
 from srrg2_laser_slam_2d_tpu_torch.ops import nn_icp_kernel as nk
+from srrg2_laser_slam_2d_tpu_torch.ops import stream_kernel as sk
 from srrg2_laser_slam_2d_tpu_torch.utils.cloud import Cloud
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +88,67 @@ def test_frame_kernel_matches_plain_on_card(card):
     # frame_step is the same kernel with T = 1
     c1, p1, pay1 = fk.frame_step(spec, measC[0], st.cacheT, st.pose)
     np.testing.assert_allclose(pay1.cpu().numpy(), kpay[0], atol=1e-5)
+
+
+def _room_streams(card, K: int, T: int, beams: int, spec_kw: dict):
+    """K different drives through the room, packed for the K-stream kernel:
+    (spec, seed states, cacheB, poseB, measC_stack, odom_stack)."""
+    pcfg = PreprocessorConfig(voxelize_resolution=0.02, normal_window=8,
+                              voxelize_mode="sequential")
+    pre = ScanPreprocessor(pcfg, device=card)
+    pre.set_model(LaserModel(beams, -np.pi, np.pi, 0.0, 30.0))
+    spec = fk.FrameSpec(projection=pre.projection, scene_capacity=2048, **spec_kw)
+    states, meas, odoms = [], [], []
+    for k in range(K):
+        u = np.linspace(0.0, 1.0, T + 1)
+        poses = np.stack([-2.0 + (1.5 + 0.3 * k) * u, -1.0 + (0.2 * k) * u + 0.8 * u * u,
+                          (0.3 - 0.15 * k) * u], 1)
+        clouds = pre.compute(_room_ranges(poses, beams))
+        states.append(ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32),
+                              odom=poses[0].astype(np.float32)))
+        meas.append(ft.pack_measurement_canvas_batch(spec, clouds.map(lambda x: x[1:])))
+        odoms.append(torch.as_tensor(poses[1:], dtype=torch.float32, device=card))
+    cacheB, poseB = sk.pack_stream_state(torch.stack([s.cacheT for s in states]),
+                                         torch.stack([s.pose for s in states]))
+    measC, odomS = sk.pack_stream_measurements(torch.stack(meas), torch.stack(odoms))
+    return spec, states, cacheB, poseB, measC, odomS
+
+
+@pytest.mark.parametrize("gather,refresh,iterations", [("onehot", 2, 7), ("roll", 1, 6),
+                                                       ("onehot", 1, 6)])
+def test_stream_kernel_matches_plain_on_card(card, gather, refresh, iterations):
+    K, T = 5, 12
+    spec, states, cacheB, poseB, measC, odomS = _room_streams(
+        card, K, T, 361, dict(iterations=iterations, window=128, stream_gather=gather,
+                              corr_refresh=refresh))
+    before = sk.launches
+    kc, kp, kpay = sk.track_streams_grid(spec, cacheB, poseB, measC, odomS)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    pc, pp, ppay = sk.track_streams_grid_plain(spec, cacheB, poseB, measC, odomS)
+    assert not torch.allclose(pp[0, 0:3], pp[1, 0:3], atol=1e-2)      # streams differ
+    np.testing.assert_allclose(kp.cpu().numpy(), pp.cpu().numpy(), atol=1e-4)
+    kpay_n, ppay_n = kpay.cpu().numpy(), ppay.cpu().numpy()
+    kind_eq = kpay_n[:, 5] == ppay_n[:, 5]
+    assert kind_eq.mean() >= 0.995 and (kpay_n[:, 4] == ppay_n[:, 4]).mean() >= 0.995
+    live = kind_eq & (ppay_n[:, 5] > 0)
+    for r in range(4):
+        np.testing.assert_allclose(kpay_n[:, r][live], ppay_n[:, r][live], atol=1e-4)
+    np.testing.assert_allclose(kpay_n[:, 6, :, 0:7], ppay_n[:, 6, :, 0:7], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(kc.cpu().numpy()[:4], pc.cpu().numpy()[:4], atol=1e-4)
+    # stream_step is the same kernel with T = 1
+    c1, p1, pay1 = sk.stream_step(spec, measC[0], odomS[0], cacheB, poseB)
+    np.testing.assert_allclose(pay1.cpu().numpy(), kpay_n[0], atol=1e-5)
+    if gather == "onehot" and refresh == 1:
+        # each stream against the single-stream CUDA kernel on that stream:
+        # the same band, arithmetic and block sums
+        for k in range(K):
+            measF = measC[:, :, k].clone()
+            measF[:, 6, 0:4] = odomS[:, k, 0:4]
+            sc, sp, spay = fk.track_frames_grid(spec, states[k].cacheT, states[k].pose, measF)
+            np.testing.assert_array_equal(kpay_n[:, 4:6, k], spay.cpu().numpy()[:, 4:6])
+            np.testing.assert_allclose(kpay_n[:, 0:4, k], spay.cpu().numpy()[:, 0:4], atol=1e-6)
+            np.testing.assert_allclose(kp[k, 0:8].cpu().numpy(), sp[0].cpu().numpy(), atol=1e-6)
 
 
 def test_nn_icp_kernel_matches_plain_on_card(card):

@@ -78,3 +78,29 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
         frame_kernel.track_frames_grid(
             frame_kernel.FrameSpec(projection=spec.projection, meas_as_canvas=False),
             cache, pose, torch.zeros(2, 8, B))
+
+
+def test_stream_wrapper_takes_the_plain_version_only_for_cpu_tensors():
+    """The K-stream wrapper: CPU tensors go to the plain version and count
+    no launch; a tensor on any other device must launch the kernel (a meta
+    tensor, which no kernel takes, is refused, not handed to the plain
+    version)."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, stream_kernel
+    from srrg2_laser_slam_2d_tpu_torch.ops.projector import PolarProjection
+
+    spec = frame_kernel.FrameSpec(
+        projection=PolarProjection.make(cols=100, angle_min=-1.0, angle_max=1.0),
+        iterations=3, window=128, corr_refresh=2)
+    K, T, B = 2, 2, spec.cols_padded
+    cacheB, poseB = torch.zeros(8, K, B), torch.zeros(K, 16)
+    measC, odomS = torch.zeros(T, 8, K, B), torch.zeros(T, K, 8)
+    before = stream_kernel.launches
+    c, p, pay = stream_kernel.track_streams_grid(spec, cacheB, poseB, measC, odomS)
+    assert pay.shape == (T, 8, K, B) and c.shape == (8, K, B) and p.shape == (K, 16)
+    assert stream_kernel.launches == before
+    with pytest.raises(ValueError):
+        stream_kernel.track_streams_grid(spec, cacheB.to("meta"), poseB.to("meta"),
+                                         measC.to("meta"), odomS.to("meta"))
+    with pytest.raises(ValueError):
+        stream_kernel.stream_step(spec, measC[0].to("meta"), odomS[0].to("meta"),
+                                  cacheB.to("meta"), poseB.to("meta"))
