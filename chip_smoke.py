@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. print the card's name and power limit, build all three kernels from
+  1. print the card's name and power limit, build all seven kernels from
      ``srrg2_laser_slam_2d_tpu_torch/csrc`` (one ``nvcc`` per source, all
      started together);
   2. the frame kernel against its plain PyTorch version on the card, on the
@@ -19,22 +19,48 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``onehot``); then the ``roll`` band and ``corr_refresh=1`` over the first
      ``STREAM_SHORT_T`` frames; and at ``corr_refresh=1`` each stream of the
      K-stream kernel against the single-stream CUDA kernel on that stream;
-  5. the corridor run (2,871 frames, chunk 1024) through
+  5. the four kernels of the per-message loop against their plain versions
+     on the card, on real inputs: the first ``SCENE_FRAMES`` corridor frames
+     tracked into one local map leave a scene of some 3,000 live points in
+     8,192 rows; the projector kernel (N = 8,192 points, B = 768 beams) and
+     the scene canvas kernel on that scene seen from the robot's pose, the
+     banded and the dense aligner kernels on the next scan (1,024 rows)
+     against the scene's clip (721 rows, and 768 from the canvas kernel)
+     with the odometry step as initial guess and prior, 10 iterations;
+  6. the corridor run (2,871 frames, chunk 1024) through
      ``ChunkedSlamRunner`` under ``configurations/corridor.json`` and then
      ``configurations/corridor_lean.json``, each with the launch counters
      set to 0 just before and read just after;
-  6. the throughput path through its entry points, the counters set to 0
+  7. the throughput path through its entry points, the counters set to 0
      just before and read just after: ``stream_bench.measure_single``, then
      ``measure_streams`` at K = 8, 32 and 128 (10 chained calls, one
      synchronisation, best of 5; one kernel launch per chained call; then
      the kernel and the materialization of one call each alone), and
      the one-line headline of ``bench/headline.py`` at K = 32;
-  7. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+  8. the per-message loop, every launch counter set to 0 before each run and
+     read after it: ``LaserTracker`` over ``ONE_MAP_SCANS`` corridor scans in
+     one local map on routes A (banded aligner kernel), B (dense aligner and
+     scene canvas kernels) and C (plain ICP), A and B held to C within
+     0.01 m / 0.01 rad at every frame; ``SlamRunner`` over the first
+     ``MESSAGE_FRAMES`` corridor frames on routes A, A with
+     ``reuse_clip_canvas``, A with ``lean_scene_ops``, B, B with
+     ``reuse_clip_canvas`` and C with the z-buffer backend set to the
+     projector kernel, each with its launch counts asserted (one aligner
+     launch per tracked frame; three canvas launches per tracked frame, two
+     where the clip came from the cache; the projector kernel in every clip,
+     aligner pass and merge) and its ATE held inside ``CORRIDOR_THRESHOLDS``;
+     then route D (the default on a card: the frame kernel launched once per
+     message) over the WHOLE corridor through ``generic_bench_app``'s
+     function under ``corridor.json``: finite trajectory, a split, an
+     accepted closure; the gate verdict is printed, not asserted;
+  9. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
      main path, its error against the plain version, its time, the plain
      version's time and its bound.
 The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier paths is cut: the
-whole script takes a few minutes of the card.
+whole script takes about six minutes of the card, a third of its limit.
+``--only message-kernels`` / ``--only message-path`` run the build and part
+5 or part 8 alone while developing, and print no result lines.
 
 Tolerances. Kernel and plain version run the same float32 operations in
 the same order (the CUDA sources are built without multiply-add
@@ -71,7 +97,16 @@ beam crossing a gate by rounding), no count differing by more than 2; at
 most 1 % of the stream-frames may be flagged, with at
 most 16 beams' kinds differing in one. Against the single-stream CUDA kernel
 (the same arithmetic, band and block sums) each stream's decisions are
-equal and its points within 1e-6.
+equal and its points within 1e-6. The projector and scene canvas kernels do
+no sums: winner indices, rows and depths are EQUAL to the plain version's
+and the fields agree within 1e-6 (a single winner is copied; two points tied
+at a depth are averaged exactly). The aligner kernels' estimates agree
+within 1e-5, the correspondence and inlier counts of every pass are equal
+or 1 apart (a beam at a gate), chi within rtol 1e-3. The four kernels run
+for tens of microseconds, less than the host takes to enqueue them, so
+their ``ms`` is the device time with the queue kept full behind three large
+matrix products (``device_time_ms``); ``host_paced_ms`` is the same calls at
+the host's pace.
 """
 
 from __future__ import annotations
@@ -95,6 +130,9 @@ STREAM_FRAMES = 256
 STREAM_SHORT_T = 48
 STREAM_KS = (8, 32, 128)
 FLAGGED_TOL = 1e-2
+SCENE_FRAMES = 40
+MESSAGE_FRAMES = 600
+ONE_MAP_SCANS = 11
 
 
 def log(*args) -> None:
@@ -112,6 +150,33 @@ def cuda_time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+_SPIN = {}
+
+
+def device_time_ms(fn, reps: int) -> float:
+    """Mean DEVICE milliseconds of ``fn`` over ``reps`` runs, for kernels
+    shorter than the host takes to enqueue them: the runs are enqueued while
+    the card is still busy with three large matrix products, so they execute
+    back to back and the host's pace does not show (``cuda_time_ms`` gives
+    the host-paced time of the same calls)."""
+    if "x" not in _SPIN:
+        _SPIN["x"] = torch.randn(8192, 8192, device="cuda")
+    x = _SPIN["x"]
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        x @ x
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    busy = not start.query()      # the products were still running when the last run was enqueued
+    torch.cuda.synchronize()
+    assert busy, "the host was too slow to keep the queue full; use more products"
     return start.elapsed_time(end) / reps
 
 
@@ -482,6 +547,380 @@ def check_stream_kernel(device) -> dict:
             "err_vs_single_stream_kernel": single_err}
 
 
+# ------------------------------------------------- the per-message kernels
+
+def tracked_scene(msgs, slam_cfg, pcfg, device):
+    """Real inputs for the four per-message kernels: the first
+    ``SCENE_FRAMES`` corridor frames tracked into ONE local map by the frame
+    kernel (no split), which leaves a scene of a few thousand live points in
+    8,192 rows and the robot's pose in it; then the next measurement with
+    the odometry step that leads to it."""
+    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
+    from srrg2_laser_slam_2d_tpu_torch.models.slam import frame_spec
+    from srrg2_laser_slam_2d_tpu_torch.utils import geometry
+
+    spec = frame_spec(slam_cfg)
+    clouds, odoms = corridor_chunk(msgs, SCENE_FRAMES + 1, pcfg, device)
+    S = torch.zeros(3, device=device)
+    st = ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32), odom=odoms[0])
+    measC = ft.pack_measurement_canvas_batch(
+        spec, clouds.map(lambda x: x[1:SCENE_FRAMES]),
+        torch.from_numpy(odoms[1:SCENE_FRAMES]).to(device))
+    st, _ = ft.track_sequence_fast(spec, st, measC)
+    X = st.pose[0, 0:3].clone()
+    meas = clouds.map(lambda x: x[SCENE_FRAMES].contiguous())
+    od = torch.from_numpy(odoms).to(device)
+    D = geometry.relative(od[SCENE_FRAMES - 1], od[SCENE_FRAMES])
+    T0 = geometry.inverse(geometry.compose(D, S))
+    live = int(st.scene.count())
+    log(f"scene for the kernel checks: {live} live points in {st.scene.capacity} rows after "
+        f"{SCENE_FRAMES} corridor frames, robot at {X.cpu().numpy().round(3).tolist()}")
+    assert 2000 <= live <= st.scene.capacity
+    return st.scene, X, S, meas, T0
+
+
+def entry(name, source, replaces, err, ms, plain_ms, bytes_moved, flops, shape, **extra) -> dict:
+    b_ms, b_by = bound(bytes_moved, flops)
+    paced = f" ({extra['host_paced_ms']:.4f} ms at the host's pace)" if "host_paced_ms" in extra \
+        else ""
+    log(f"{name} {shape}: {ms:.4f} ms{paced}, plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    return {"name": name, "route": "cuda",
+            "source": f"srrg2_laser_slam_2d_tpu_torch/csrc/{source}",
+            "replaces": f"srrg2_laser_slam_2d_tpu/ops/{replaces}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": shape, **extra}
+
+
+def check_projector_kernel(proj, scene, X, S) -> dict:
+    """Kernel 8 against its plain version on the scene in the sensor frame:
+    index and depth of every beam EQUAL (same operations in the same order,
+    no sums)."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import projector_kernel as pk
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+    from srrg2_laser_slam_2d_tpu_torch.utils import geometry
+
+    local = cloud_op.transform(scene, geometry.inverse(geometry.compose(X, S)))
+    xy, valid = local.xy.contiguous(), local.valid.contiguous()
+    k = pk.project_local(proj, xy, valid)
+    torch.cuda.synchronize()
+    p = pk.project_local_plain(proj, xy, valid)
+    hits = int(p.valid.sum())
+    assert hits >= 300, hits
+    assert torch.equal(k.idx, p.idx) and torch.equal(k.valid, p.valid), "winner indices differ"
+    err = float((k.depth - p.depth).abs().max())
+    assert err == 0.0, f"projector kernel depths differ by {err}"
+    n = xy.shape[0]
+    B = pk.cols_padded(proj)
+    ms = device_time_ms(lambda: pk.project_local(proj, xy, valid), 100)
+    paced_ms = cuda_time_ms(lambda: pk.project_local(proj, xy, valid), 200)
+    plain_ms = cuda_time_ms(lambda: pk.project_local_plain(proj, xy, valid), 20)
+    from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
+    scatter_ms = cuda_time_ms(lambda: projector_op.project_local_scatter(proj, local), 50)
+    log(f"projector kernel: {hits} beams hit, indices and depths equal; the port's "
+        f"scatter-min project_local (several PyTorch calls) takes {scatter_ms:.4f} ms")
+    return entry("projector_kernel", "projector_kernel.cu", "pallas_projector.py:131", err, ms,
+                 plain_ms, n * 9 + B * 8, n * pk.FLOPS_PER_POINT, f"N={n} B={B}",
+                 host_paced_ms=paced_ms, scatter_project_local_ms=scatter_ms)
+
+
+def check_scene_kernel(proj, scene, X, S) -> dict:
+    """Kernel 7 against its plain version: winner rows EQUAL, depths equal,
+    fields within 1e-6 (single winners are copied, tied ones averaged)."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import scene_kernel as sk
+    from srrg2_laser_slam_2d_tpu_torch.utils import geometry
+
+    cam = geometry.compose(X, S)
+    ko, kr = sk.canvas(proj, scene, cam)
+    torch.cuda.synchronize()
+    po, p_rows = sk.canvas_plain(proj, scene, cam)
+    assert torch.equal(kr, p_rows), "winner rows differ"
+    assert torch.equal(ko[0], po[0]) and torch.equal(ko[5], po[5]), "depths differ"
+    err = float((ko - po).abs().max())
+    assert err <= 1e-6, f"scene kernel fields differ by {err}"
+    n, B = scene.capacity, ko.shape[1]
+    ms = device_time_ms(lambda: sk.canvas(proj, scene, cam), 100)
+    paced_ms = cuda_time_ms(lambda: sk.canvas(proj, scene, cam), 200)
+    plain_ms = cuda_time_ms(lambda: sk.canvas_plain(proj, scene, cam), 10)
+    log(f"scene kernel: {int((p_rows >= 0).sum())} beams hit, rows and depths equal, "
+        f"fields within {err:.3g}")
+    return entry("scene_kernel", "scene_kernel.cu", "pallas_scene.py:159", err, ms, plain_ms,
+                 n * 17 + 12 + B * 28, n * sk.FLOPS_PER_POINT, f"N={n} B={B} chunk=1024",
+                 host_paced_ms=paced_ms)
+
+
+def compare_align(label: str, k, p) -> float:
+    """Aligner kernel against its plain version: estimate within 1e-5, the
+    counts of every pass equal or 1 apart (a beam at a gate, block sums in
+    another order), chi within rtol 1e-3."""
+    err = float((k.estimate - p.estimate).abs().max())
+    ks = torch.cat([torch.stack([k.chi, k.num_corr, k.num_inliers, k.chi_inl_sum])[None],
+                    k.iter_stats])
+    ps = torch.cat([torch.stack([p.chi, p.num_corr, p.num_inliers, p.chi_inl_sum])[None],
+                    p.iter_stats])
+    count_diff = float((ks[:, 1:3] - ps[:, 1:3]).abs().max())
+    chi_rel = float(((ks[:, [0, 3]] - ps[:, [0, 3]]).abs()
+                     / ps[:, [0, 3]].abs().clamp(min=1e-3)).max())
+    log(f"{label}: estimate {p.estimate.cpu().numpy().tolist()}, max abs err {err:.3g}; "
+        f"correspondences {float(p.num_corr):.0f}, inliers {float(p.num_inliers):.0f}, "
+        f"largest count difference over all passes {count_diff:.0f}, chi rel diff {chi_rel:.3g}")
+    assert float(p.num_inliers) >= 100, "the check needs a real alignment"
+    assert err <= 1e-5, f"{label}: estimates differ by {err}"
+    assert count_diff <= 1 and chi_rel <= 1e-3, label
+    return err
+
+
+def check_align_kernels(proj, acfg, scene, X, S, meas, T0) -> list[dict]:
+    from srrg2_laser_slam_2d_tpu_torch.ops import banded_align_kernel as bak
+    from srrg2_laser_slam_2d_tpu_torch.ops import clip as clip_op
+    from srrg2_laser_slam_2d_tpu_torch.ops import projective_align_kernel as pak
+    from srrg2_laser_slam_2d_tpu_torch.ops import scene_kernel as sk
+
+    kw = dict(odom_prior=T0, iterations=acfg.max_iterations,
+              point_distance=acfg.point_distance, normal_cos=acfg.normal_cos,
+              chi_threshold=acfg.chi_threshold, min_inliers=acfg.min_num_inliers,
+              odom_weight=acfg.odom_weight)
+    passes = acfg.max_iterations + 1
+    F = meas.capacity
+    fixed = (meas.xy, meas.normal, meas.valid)
+    out_bytes = 4 * (3 + 4 + 4 * acfg.max_iterations)
+    out = []
+    # kernel 5: the moving cloud is the plain projective clip (one row per beam)
+    clip = clip_op.clip_projective(proj, scene, X, S).map(lambda x: x.contiguous())
+    mov = (clip.xy, clip.normal, clip.valid)
+    k = bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw)
+    torch.cuda.synchronize()
+    p = bak.fused_projective_align_banded_plain(proj, *fixed, *mov, T0, **kw)
+    err = compare_align("banded align kernel", k, p)
+    B = pak.align_spec(proj, 1, 0, 0, 0, 0, 0).cols_padded
+    ms = device_time_ms(
+        lambda: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
+    paced_ms = cuda_time_ms(
+        lambda: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
+    plain_ms = cuda_time_ms(
+        lambda: bak.fused_projective_align_banded_plain(proj, *fixed, *mov, T0, **kw), 3)
+    out.append(entry("banded_align_kernel", "banded_align_kernel.cu",
+                     "pallas_banded_align.py:162", err, ms, plain_ms,
+                     17 * (F + clip.capacity) + 24 + out_bytes,
+                     F * pak.FLOPS_PER_CANVAS_POINT + passes * bak.flops_per_pass(B),
+                     f"F={F} M={clip.capacity} B={B} iterations={acfg.max_iterations}",
+                     host_paced_ms=paced_ms))
+    # kernel 4: the moving cloud is the kernel clip (one row per padded beam)
+    clip = sk.clip_projective(proj, scene, X, S).map(lambda x: x.contiguous())
+    mov = (clip.xy, clip.normal, clip.valid)
+    k = pak.fused_projective_align(proj, *fixed, *mov, T0, **kw)
+    torch.cuda.synchronize()
+    p = pak.fused_projective_align_plain(proj, *fixed, *mov, T0, **kw)
+    err = compare_align("projective align kernel", k, p)
+    B = sk.cols_padded(proj)
+    ms = device_time_ms(lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
+    paced_ms = cuda_time_ms(lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
+    plain_ms = cuda_time_ms(
+        lambda: pak.fused_projective_align_plain(proj, *fixed, *mov, T0, **kw), 3)
+    out.append(entry("projective_align_kernel", "projective_align_kernel.cu",
+                     "pallas_projective_align.py:303", err, ms, plain_ms,
+                     17 * (F + clip.capacity) + 24 + out_bytes,
+                     F * pak.FLOPS_PER_CANVAS_POINT
+                     + passes * pak.flops_per_pass(clip.capacity, B),
+                     f"F={F} M={clip.capacity} B={B} iterations={acfg.max_iterations}",
+                     host_paced_ms=paced_ms))
+    return out
+
+
+def check_message_kernels(msgs, slam_cfg, pcfg, device) -> list[dict]:
+    """Kernels 8, 7, 5 and 4 against their plain versions on the card."""
+    proj = slam_cfg.tracker.projection
+    scene, X, S, meas, T0 = tracked_scene(msgs, slam_cfg, pcfg, device)
+    return [check_projector_kernel(proj, scene, X, S), check_scene_kernel(proj, scene, X, S),
+            *check_align_kernels(proj, slam_cfg.tracker.aligner, scene, X, S, meas, T0)]
+
+
+# ------------------------------------------------------ the per-message path
+
+def _launch_modules():
+    from srrg2_laser_slam_2d_tpu_torch.ops import (banded_align_kernel, frame_kernel,
+                                                   nn_icp_kernel, projective_align_kernel,
+                                                   projector_kernel, scene_kernel,
+                                                   stream_kernel)
+    return {"frame_kernel": frame_kernel, "nn_icp_kernel": nn_icp_kernel,
+            "stream_kernel": stream_kernel, "projector_kernel": projector_kernel,
+            "scene_kernel": scene_kernel, "banded_align_kernel": banded_align_kernel,
+            "projective_align_kernel": projective_align_kernel}
+
+
+def reset_launches() -> None:
+    for mod in _launch_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in _launch_modules().items()}
+
+
+def ate_of(trajectory) -> tuple[dict, bool]:
+    """ATE of a (timestamp, pose, seconds) trajectory against the corridor's
+    ground truth, and whether it breaks ``CORRIDOR_THRESHOLDS``."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+    from srrg2_laser_slam_2d_tpu_torch.bench import suite as suite_mod
+    from srrg2_laser_slam_2d_tpu_torch.io import tum
+
+    bench = suite_mod.BenchmarkSuite()
+    bench.set_ground_truth(*tum.read_tum(corridor_e2e.GROUND_TRUTH))
+    for t, p, d in trajectory:
+        bench.set_pose_estimate(p, t, d)
+    stats = bench.compute()
+    return stats, bench.is_regression(suite_mod.CORRIDOR_THRESHOLDS, stats)
+
+
+def route_d_run(msgs) -> dict:
+    """Route D, the default on a card: the WHOLE corridor through
+    ``generic_bench_app`` under ``corridor.json`` (``use_fast_tracker``: one
+    launch of the frame kernel per message)."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import generic_bench_app as app
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    args = app.parser().parse_args([
+        "-i", corridor_e2e.DATA, "--gt", corridor_e2e.GROUND_TRUTH,
+        "-c", "configurations/corridor.json", "--gate", "corridor",
+        "--json-out", os.path.join(OUT_DIR, "per_message.json"),
+        "-o", os.path.join(OUT_DIR, "per_message.tum")])
+    reset_launches()
+    rc, art, runner = app.run(args, msgs)
+    launches = read_launches()
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    n = art["frames"]
+    out = {"route": "D", "frames": n, "wall_s": art["total_dataset_time_s"],
+           "frames_per_s": n / art["total_dataset_time_s"],
+           "mean_frame_hz": art["mean_frame_hz"],
+           "ate_rmse_translation_m": art["ate"]["rmse_translation"],
+           "graph_variables": art["graph_variables"], "graph_factors": art["graph_factors"],
+           "closures": art["closures"], "relocalizations": art["relocalizations"],
+           "gate_verdict": art["gate_verdict"], "exit_code": rc,
+           "preprocess_s": art["preprocess_time_s"], "phases": art["phases"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"per-message route D, whole corridor: {json.dumps(out)}")
+    assert n == 2871 and traj.shape == (n, 3) and np.isfinite(traj).all()
+    assert art["graph_variables"] >= 2, "no local-map split"
+    assert art["closures"] >= 1, "no loop closure was accepted"
+    # one launch per message after the first (a split reseeds without a launch)
+    assert launches["frame_kernel"] == n - 1, launches
+    return out
+
+
+MESSAGE_ROUTES = (
+    ("A", dict(use_fused_aligner=True, banded_aligner=True), None),
+    ("A reuse_clip_canvas", dict(use_fused_aligner=True, banded_aligner=True,
+                                 reuse_clip_canvas=True), None),
+    ("A lean_scene_ops", dict(use_fused_aligner=True, banded_aligner=True,
+                              reuse_clip_canvas=True, lean_scene_ops=True), None),
+    ("B", dict(use_fused_aligner=True, use_fused_scene_ops=True), None),
+    ("B reuse_clip_canvas", dict(use_fused_aligner=True, use_fused_scene_ops=True,
+                                 reuse_clip_canvas=True), None),
+    ("C kernel z-buffer", {}, "kernel"),
+)
+
+
+def message_route_run(name, flags, backend, slam_cfg, pcfg, msgs, device) -> tuple[dict, object]:
+    """One tracker route over the first ``MESSAGE_FRAMES`` corridor frames
+    through ``SlamRunner``; asserts the route's launch counts."""
+    import dataclasses
+
+    from srrg2_laser_slam_2d_tpu_torch.io.sources import ListSource
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+    from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
+
+    cfg = dataclasses.replace(slam_cfg, use_fast_tracker=False,
+                              tracker=dataclasses.replace(slam_cfg.tracker, **flags))
+    runner = SlamRunner(slam_config=cfg, preprocessor_config=pcfg, device=device)
+    projector_op.ZBUFFER_BACKEND = backend
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        n = runner.run(ListSource(msgs), MESSAGE_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        projector_op.ZBUFFER_BACKEND = None
+    slam, tracker = runner.slam, runner.slam.tracker
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    stats, regression = ate_of(runner.trajectory)
+    track_s = float(sum(d for _, _, d in runner.trajectory))
+    out = {"route": name, "frames": n, "wall_s": wall, "frames_per_s": n / wall,
+           "tracked_frames": tracker.steps, "cached_clips": tracker.cached_clips,
+           "process_s": track_s, "preprocess_s": runner.preprocess_time,
+           "phases": runner.timing_summary().get("phases", {}),
+           "ate_rmse_translation_m": float(stats["rmse_translation"]),
+           "graph_variables": slam.num_variables(), "graph_factors": slam.num_factors(),
+           "closures": slam.num_closures, "relocalizations": slam.relocalizations,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"per-message route {name}, {n} frames: {json.dumps(out)}")
+    assert n == MESSAGE_FRAMES and traj.shape == (n, 3) and np.isfinite(traj).all()
+    assert tracker.steps == n - 1
+    assert not regression, f"route {name}: ATE outside CORRIDOR_THRESHOLDS: {stats}"
+    steps = tracker.steps
+    if name.startswith("A"):
+        assert launches["banded_align_kernel"] == steps, launches
+        assert launches["projective_align_kernel"] == launches["scene_kernel"] == 0
+    elif name.startswith("B"):
+        assert launches["projective_align_kernel"] == steps, launches
+        # one canvas for the clip unless it came from the cache, two in the merge
+        assert launches["scene_kernel"] == 3 * steps - tracker.cached_clips, launches
+        assert tracker.cached_clips > 0 or not flags.get("reuse_clip_canvas")
+        assert launches["banded_align_kernel"] == 0
+    else:
+        # per tracked frame: 1 clip, 1 + iterations in the aligner, 2 in the merge
+        per_step = 4 + cfg.tracker.aligner.max_iterations
+        assert launches["projector_kernel"] >= per_step * steps, launches
+        assert launches["banded_align_kernel"] == launches["projective_align_kernel"] == 0
+    return out, traj
+
+
+def message_routes_run(slam_cfg, pcfg, msgs, device) -> list[dict]:
+    outs, trajs = [], {}
+    for name, flags, backend in MESSAGE_ROUTES:
+        out, trajs[name] = message_route_run(name, flags, backend, slam_cfg, pcfg, msgs, device)
+        outs.append(out)
+    ref = trajs["C kernel z-buffer"]
+    for name, traj in trajs.items():
+        rms = float(np.sqrt(((traj[:, :2] - ref[:, :2]) ** 2).sum(1).mean()))
+        log(f"route {name}: trajectory RMS to route C over {len(traj)} frames {rms:.4f} m "
+            "(printed, not held: the loop is chaotic once maps split)")
+        next(o for o in outs if o["route"] == name)["rms_to_route_c_m"] = rms
+    return outs
+
+
+def routes_in_one_map(slam_cfg, pcfg, msgs, device) -> dict:
+    """The routes held to each other where that is fair: ``LaserTracker``
+    over ``ONE_MAP_SCANS`` consecutive corridor scans inside one local map
+    (no SLAM layer, so no split); routes A and B against route C's
+    ``robot_in_local_map`` within 0.01 m and 0.01 rad at every frame."""
+    import dataclasses
+
+    from srrg2_laser_slam_2d_tpu_torch.models.tracker import LaserTracker
+
+    clouds, odoms = corridor_chunk(msgs, ONE_MAP_SCANS, pcfg, device)
+    poses = {}
+    for name, flags in (("C", {}), ("A", MESSAGE_ROUTES[0][1]), ("B", MESSAGE_ROUTES[3][1])):
+        tracker = LaserTracker(dataclasses.replace(slam_cfg.tracker, **flags), device=device)
+        rows = []
+        for k in range(ONE_MAP_SCANS):
+            tracker.compute(clouds.map(lambda x: x[k]), odoms[k])
+            rows.append(tracker.robot_in_local_map.cpu().numpy())
+        poses[name] = np.stack(rows)
+    out = {}
+    for name in ("A", "B"):
+        d = np.abs(poses[name] - poses["C"])
+        out[name] = {"max_translation_diff_m": float(d[:, :2].max()),
+                     "max_rotation_diff_rad": float(d[:, 2].max())}
+        log(f"{ONE_MAP_SCANS} scans in one local map, route {name} against route C: "
+            f"{json.dumps(out[name])}; end pose {poses[name][-1].round(4).tolist()}")
+        assert d[:, :2].max() < 0.01 and d[:, 2].max() < 0.01, (name, d.max(axis=0))
+    assert np.linalg.norm(poses["C"][-1, :2]) > 0.5, "the robot must have moved"
+    return out
+
+
 # ------------------------------------------------------------------ phase 5
 
 
@@ -562,6 +1001,13 @@ def headline_run(device) -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
+    ap.add_argument("--only", choices=["message-kernels", "message-path"], default=None,
+                    help="while developing: run the build and this part alone; "
+                         "prints no result lines")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -588,14 +1034,33 @@ def main() -> int:
     mgr = config_mod.ConfigManager.read("configurations/corridor.json")
     slam_cfg, pcfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
     msgs = corridor_e2e.load_messages()
+    if args.only == "message-kernels":
+        check_message_kernels(msgs, slam_cfg, pcfg, device)
+        return 0
+    if args.only == "message-path":
+        routes_in_one_map(slam_cfg, pcfg, msgs, device)
+        message_routes_run(slam_cfg, pcfg, msgs, device)
+        route_d_run(msgs)
+        return 0
     stream_entry = check_stream_kernel(device)
     kernels = [check_frame_kernel(msgs, slam_cfg, pcfg, device),
-               check_nn_icp_kernel(slam_cfg.detector, device), stream_entry]
+               check_nn_icp_kernel(slam_cfg.detector, device), stream_entry,
+               *check_message_kernels(msgs, slam_cfg, pcfg, device)]
 
     main_run, _ = corridor_run("configurations/corridor.json", msgs, device)
     lean_run, _ = corridor_run("configurations/corridor_lean.json", msgs, device)
     throughput = headline_run(device)
-    launches = {**main_run["launches"], **throughput["launches"]}
+    one_map = routes_in_one_map(slam_cfg, pcfg, msgs, device)
+    routes = message_routes_run(slam_cfg, pcfg, msgs, device)
+    route_d = route_d_run(msgs)
+    # each kernel's launches on ITS main path, counted from 0 over that path
+    by_route = {r["route"]: r["launches"] for r in routes}
+    launches = {**main_run["launches"], **throughput["launches"],
+                "banded_align_kernel": by_route["A"]["banded_align_kernel"],
+                "projective_align_kernel": by_route["B"]["projective_align_kernel"],
+                "scene_kernel": by_route["B"]["scene_kernel"],
+                "projector_kernel": by_route["C kernel z-buffer"]["projector_kernel"]}
+    assert route_d["launches"]["frame_kernel"] > 0
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, f"{k['name']} was not launched on its main path"
@@ -604,6 +1069,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "corridor": main_run,
                    "corridor_lean": lean_run, "throughput": throughput,
+                   "per_message": {"route_d": route_d, "routes": routes,
+                                   "one_local_map": one_map},
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

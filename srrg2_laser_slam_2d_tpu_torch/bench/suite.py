@@ -21,6 +21,8 @@ class RegressionThresholds:
     max_std_rotation: float = 1.0
 
 
+KILLIAN_THRESHOLDS = RegressionThresholds((25.0, 25.0), (100.0, 100.0), 1.0, 1.0)
+SIMUL_THRESHOLDS = RegressionThresholds((0.1, 0.1), (0.5, 0.5), 1.0, 1.0)
 # the 2,871-frame synthetic corridor: sub-meter ATE
 CORRIDOR_THRESHOLDS = RegressionThresholds((1.0, 1.0), (2.0, 2.0), 0.5, 0.5)
 

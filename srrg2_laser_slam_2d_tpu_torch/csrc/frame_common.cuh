@@ -1,9 +1,11 @@
-// Device functions shared by the fused tracking-frame kernels:
-// frame_kernel.cu (one stream, with the local-map split) and
-// stream_kernel.cu (K independent streams, gather backends and
-// correspondence refresh). The arithmetic follows the Pallas bodies
-// (ops/pallas_frame.py:_frame_body, ops/pallas_stream.py:_frame_body_b)
-// operation by operation; both sources are built with --fmad=false.
+// Device functions shared by the beam-space kernels: the fused
+// tracking-frame kernels frame_kernel.cu (one stream, with the local-map
+// split) and stream_kernel.cu (K independent streams, gather backends and
+// correspondence refresh), and the two aligners banded_align_kernel.cu and
+// projective_align_kernel.cu. The arithmetic follows the Pallas bodies
+// (ops/pallas_frame.py:_frame_body, ops/pallas_stream.py:_frame_body_b,
+// ops/pallas_banded_align.py, ops/pallas_projective_align.py) operation by
+// operation; every source is built with --fmad=false.
 
 #pragma once
 
@@ -122,6 +124,70 @@ __device__ __forceinline__ Fields moving_fields(float mx, float my, float mnx, f
           (r.d >= p.range_min) && (r.d <= p.range_max);
   r.col = r.okp ? (int)colf : -1;
   return r;
+}
+
+// Dense z-buffer of a cloud of n rows (xy, normal: [n][2]; valid: bytes)
+// into canvas rows [6][B] in shared memory (ops/_beam_kernels.py
+// build_canvasT): per beam the closest depth (kBig where empty), the mean of
+// x, y, nx, ny over the points tied at that depth (each added as v * (1 /
+// count), as the TPU's normalised one-hot product does; exact for one or two
+// tied points, order-dependent in the last bit for three or more) and
+// has-point. With T != nullptr the rows are first moved by the pose T
+// (moving_fields), else they are taken as they are (the identity camera).
+// s_zmin [B] and s_cnt [B] are shared scratch; all threads call.
+__device__ __forceinline__ Fields canvas_point(const float* xy, const float* nm,
+                                               const unsigned char* valid, int i,
+                                               const float* T, const FrameParams& p) {
+  const float mv = valid[i] ? 1.0f : 0.0f;
+  if (T != nullptr)
+    return moving_fields(xy[2 * i], xy[2 * i + 1], nm[2 * i], nm[2 * i + 1], mv, T, p);
+  Fields r;
+  r.px = xy[2 * i]; r.py = xy[2 * i + 1]; r.nx = nm[2 * i]; r.ny = nm[2 * i + 1];
+  r.d = sqrtf(r.px * r.px + r.py * r.py);
+  float colf = floorf(atan2_poly(r.py, r.px) * p.f + p.c);
+  r.okp = (mv > 0.0f) && (colf >= 0.0f) && (colf < (float)p.cols) &&
+          (r.d >= p.range_min) && (r.d <= p.range_max);
+  r.col = r.okp ? (int)colf : -1;
+  return r;
+}
+
+__device__ __forceinline__ void build_canvasT(const float* xy, const float* nm,
+                                              const unsigned char* valid, int n,
+                                              const float* T, float* s_canvas, int* s_zmin,
+                                              float* s_cnt, int B, const FrameParams& p) {
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    s_zmin[b] = __float_as_int(kBig);
+    s_cnt[b] = 0.0f;
+    s_canvas[B + b] = 0.0f; s_canvas[2 * B + b] = 0.0f;
+    s_canvas[3 * B + b] = 0.0f; s_canvas[4 * B + b] = 0.0f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const Fields fl = canvas_point(xy, nm, valid, i, T, p);
+    if (fl.okp) atomicMin(&s_zmin[fl.col], __float_as_int(fl.d));   // d >= 0
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const Fields fl = canvas_point(xy, nm, valid, i, T, p);
+    if (fl.okp && fl.d <= __int_as_float(s_zmin[fl.col])) atomicAdd(&s_cnt[fl.col], 1.0f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const Fields fl = canvas_point(xy, nm, valid, i, T, p);
+    if (fl.okp && fl.d <= __int_as_float(s_zmin[fl.col])) {
+      const float inv = 1.0f / s_cnt[fl.col];
+      atomicAdd(&s_canvas[B + fl.col], fl.px * inv);
+      atomicAdd(&s_canvas[2 * B + fl.col], fl.py * inv);
+      atomicAdd(&s_canvas[3 * B + fl.col], fl.nx * inv);
+      atomicAdd(&s_canvas[4 * B + fl.col], fl.ny * inv);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    s_canvas[b] = __int_as_float(s_zmin[b]);
+    s_canvas[5 * B + b] = (s_cnt[b] > 0.0f) ? 1.0f : 0.0f;
+  }
+  __syncthreads();
 }
 
 // A moving lane's matched canvas cell: depth, point, normal, has-point.

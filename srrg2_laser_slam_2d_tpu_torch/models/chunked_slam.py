@@ -10,7 +10,8 @@ NN-ICP kernel (one launch per ``detect_batch`` pairs), votes, fuses the
 accepted closures' scenes, solves the graph and relocalizes.
 
 Scenes of all local maps live in one device pool [M, cap, ...]; the pose
-graph is host bookkeeping, turned into a device graph at solve time.
+graph is the base class's host bookkeeping, turned into a device graph at
+solve time.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import torch
 from .._device import resolve_device
 from ..ops import nn_icp_kernel
 from ..ops.frame_kernel import track_frames_grid
-from ..solver import pgo
 from ..utils.cloud import Cloud
 from . import fast_tracker as fast_mod
 from . import loop_closure as lc
@@ -45,9 +45,6 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
 
     def __init__(self, cfg: GraphSLAMConfig = GraphSLAMConfig(),
                  sensor_in_robot=None, chunk: int = 256, device=None):
-        if cfg.global_solver_kind != "dense":
-            raise NotImplementedError(
-                f"global solver {cfg.global_solver_kind!r} is not ported; use 'dense'")
         if cfg.enable_loop_closure and cfg.detector.backend != "fused_nn":
             raise NotImplementedError(
                 f"loop detector backend {cfg.detector.backend!r} is not ported; "
@@ -57,9 +54,6 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         self.chunk = chunk
         self.tracker.spec = dataclasses.replace(
             self.tracker.spec, split_distance=cfg.local_map_distance)
-        self._poses_host = np.zeros((0, 3), np.float32)
-        self._fixed_host: list[bool] = []
-        self._edges_host: list[tuple[int, int, np.ndarray, np.ndarray]] = []
         self._X_host = np.zeros(3, np.float32)
         self.world_trajectory: list[np.ndarray] = []
         # live-point count of each local map (sizes the detection capacity)
@@ -67,7 +61,6 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         self._pool: Cloud | None = None
         # most candidate pairs one NN-ICP launch aligns
         self.detect_batch = 128
-        self.phase_times: dict[str, float] = {}
 
     # ---- scene pool ---------------------------------------------------------
     def _pool_ensure(self, n: int) -> None:
@@ -95,58 +88,10 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         """A copy of map m's scene: later pool writes must not reach it."""
         return self._pool.map(lambda x: x[m].clone())
 
-    def _phase(self, name: str, t0: float) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.phase_times[name] = self.phase_times.get(name, 0.0) + (t1 - t0)
-        return t1
-
-    # ---- host-side graph bookkeeping ---------------------------------------
-    def _add_variable(self, pose: np.ndarray, fixed: bool = False) -> int:
-        idx = self.n_maps
-        self._poses_host = np.concatenate(
-            [self._poses_host, np.asarray(pose, np.float32)[None]])
-        self._fixed_host.append(bool(fixed))
-        self.adjacency.append(set())
-        self.n_maps += 1
-        return idx
-
-    def _add_edge(self, i: int, j: int, meas, info) -> None:
-        self._edges_host.append(
-            (i, j, np.asarray(meas, np.float32), np.asarray(info, np.float32)))
-        self.adjacency[i].add(j)
-        self.adjacency[j].add(i)
-        self.n_edges += 1
-
-    @property
-    def poses_np(self) -> np.ndarray:
-        return self._poses_host
-
     def robot_in_world(self) -> np.ndarray:
         if self.current_map < 0:
             return np.zeros(3, np.float32)
         return lc.compose_np(self._poses_host[self.current_map], self._X_host)
-
-    def _device_graph(self) -> pgo.PoseGraph:
-        nv, ne = self.n_maps, self.n_edges
-        vc, ec = pgo.round_capacity(nv), pgo.round_capacity(max(ne, 1))
-        poses = np.zeros((vc, 3), np.float32)
-        poses[:nv] = self._poses_host
-        var_fixed = np.zeros(vc, bool)
-        var_fixed[:nv] = self._fixed_host
-        ei, ej = np.zeros(ec, np.int64), np.zeros(ec, np.int64)
-        meas = np.zeros((ec, 3), np.float32)
-        info = np.ones((ec, 3), np.float32)
-        evalid = np.zeros(ec, bool)
-        for k, (i, j, m, w) in enumerate(self._edges_host):
-            ei[k], ej[k], meas[k], info[k], evalid[k] = i, j, m, w, True
-        return pgo.graph_from_numpy(poses, np.arange(vc) < nv, var_fixed, ei, ej,
-                                    meas, info, evalid, device=self.device)
-
-    def _global_solve(self) -> None:
-        solved, _, _ = pgo.optimize(self.cfg.global_solver, self._device_graph())
-        self._poses_host = solved.poses[: self.n_maps].cpu().numpy()
 
     # ---- main entry ---------------------------------------------------------
     def process_chunk(self, clouds: Cloud, odoms: np.ndarray | None = None,

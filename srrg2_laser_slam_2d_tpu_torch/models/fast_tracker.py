@@ -197,6 +197,18 @@ class FastTracker:
         self.flush()
         return self.state.scene
 
+    def reseed(self, measurement: Cloud, odom=None) -> None:
+        """Start a new local map at the current measurement."""
+        self._pending = []
+        prev = self.state
+        self.state = seed(self.spec, measurement.to(self.device), self.sensor_in_robot,
+                          odom=odom)
+        if prev is not None and odom is None:
+            # keep odometry continuity across the split
+            pose = self.state.pose.clone()
+            pose[0, 3:7] = prev.pose[0, 3:7]
+            self.state = self.state._replace(pose=pose)
+
     def set_scene(self, scene: Cloud, robot_in_local_map=None) -> None:
         """Continue tracking on an existing local-map scene."""
         self._pending = []
@@ -214,7 +226,8 @@ class FastTracker:
         """Track one frame (one launch); returns the frame's stats lanes
         [T'(3), chi, n_corr, n_inliers, n_app]."""
         if self.state is None:
-            self.state = seed(self.spec, measurement, self.sensor_in_robot, odom=odom)
+            self.state = seed(self.spec, measurement.to(self.device), self.sensor_in_robot,
+                              odom=odom)
             return None
         measC = pack_measurement_canvas(
             self.spec, measurement.to(self.device),

@@ -1,9 +1,10 @@
 """Loop-closing stack: candidate selection, detector gates, the vote-based
 closure validator and closure-time map fusion. Counterpart of
-``srrg2_laser_slam_2d_tpu/models/loop_closure.py`` for the chunked path:
-candidate alignment goes through the NN-ICP kernel
+``srrg2_laser_slam_2d_tpu/models/loop_closure.py``. The chunked loop aligns
+its candidates through the NN-ICP kernel
 (``ops/nn_icp_kernel.fused_align_pairs``, the ``fused_nn`` backend); the
-projective-ICP backend is not ported.
+per-message loop's ``BruteForceLoopDetector.detect`` aligns the query scene
+against all its candidates in one batched projective ICP (``_batch_align``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..ops import merge as merge_op
 from ..ops import projector as projector_op
 from ..ops.projector import PolarProjection
 from ..solver import pgo
+from ..utils import cloud as cloud_op
 from ..utils.cloud import Cloud
 
 
@@ -98,6 +100,26 @@ class ClosureCandidate:
     chi_inliers: float
 
 
+def _batch_align(acfg: icp.AlignerConfig, proj: PolarProjection, fixed_batch: Cloud,
+                 moving: Cloud, initials: torch.Tensor) -> icp.AlignResult:
+    """Align the query scene ``moving`` [N, ...] against K candidate scenes
+    ``fixed_batch`` [K, N, ...] at once (``icp.align`` over a batch)."""
+    return icp.align(acfg, proj, fixed_batch, moving, initials)
+
+
+def graph_distances(adjacency: list[set[int]], start: int) -> dict[int, int]:
+    """Breadth-first distances over the local-map graph."""
+    dist = {start: 0}
+    q = deque([start])
+    while q:
+        u = q.popleft()
+        for v in adjacency[u]:
+            if v not in dist:
+                dist[v] = dist[u] + 1
+                q.append(v)
+    return dist
+
+
 def merge_closure_scenes(proj: PolarProjection, fixed: Cloud, moving: Cloud,
                          query_in_candidate: torch.Tensor,
                          point_distance: float = 0.5, normal_cos: float = 0.8,
@@ -121,6 +143,27 @@ class BreadthFirstSelector:
 
     def __init__(self, cfg: LoopDetectorConfig):
         self.cfg = cfg
+
+    def select(self, query: int, poses: np.ndarray, n_maps: int,
+               adjacency: list[set[int]]) -> list[int]:
+        """Candidate maps of one query, nearest first."""
+        cfg = self.cfg
+        dist = graph_distances(adjacency, query)
+        q_xy = poses[query, :2]
+        out = []
+        for m in range(n_maps):
+            gd = dist.get(m, 10**9)
+            if m == query or gd <= 1:
+                continue      # direct neighbours are not closures
+            rng = cfg.max_local_map_distance * cfg.relocalize_range_scale
+            if gd >= cfg.aggressive_relocalize_graph_distance:
+                rng += (min(gd, cfg.aggressive_relocalize_graph_max_range)
+                        * cfg.aggressive_relocalize_range_increase_per_edge)
+            d = float(np.linalg.norm(poses[m, :2] - q_xy))
+            if d <= rng:
+                out.append((d, m))
+        out.sort()
+        return [m for _, m in out[: cfg.max_candidates]]
 
     def select_many(self, queries: list[int], poses: np.ndarray, n_maps: int,
                     adjacency: list[set[int]]) -> list[tuple[int, int]]:
@@ -188,14 +231,37 @@ def gate_candidates(cfg: LoopDetectorConfig, jobs: list[tuple[int, int]],
 
 
 class BruteForceLoopDetector:
-    """Holds the detector configuration and its candidate selector; the
-    chunked loop aligns the selected pairs itself (one NN-ICP launch per
-    batch of pairs) and gates them with ``gate_candidates``."""
+    """The detector configuration, its candidate selector and the
+    per-message ``detect``. The chunked loop aligns the selected pairs
+    itself (one NN-ICP launch per batch of pairs) and gates them with
+    ``gate_candidates``."""
 
     def __init__(self, cfg: LoopDetectorConfig, proj: PolarProjection):
         self.cfg = cfg
         self.proj = proj
         self.selector = BreadthFirstSelector(cfg)
+
+    def detect(self, query: int, scenes: list[Cloud], poses: np.ndarray, n_maps: int,
+               adjacency: list[set[int]]) -> list[ClosureCandidate]:
+        """Align the query map's scene against all its selected candidates
+        in one batched projective ICP, then gate."""
+        cands = self.selector.select(query, poses, n_maps, adjacency)
+        if not cands:
+            return []
+        # scenes differ in capacity once one has grown: repad to the largest
+        maxcap = max(scenes[m].capacity for m in cands)
+        batch = [scenes[m] if scenes[m].capacity == maxcap
+                 else cloud_op.repad(scenes[m], maxcap) for m in cands]
+        fixed = Cloud(*(torch.stack(f) for f in zip(*batch)))
+        moving = scenes[query]
+        initials = np.stack([relative_np(poses[m], poses[query]) for m in cands])
+        res = _batch_align(self.cfg.aligner, self.proj, fixed, moving,
+                           torch.from_numpy(initials).to(moving.xy.device))
+        packed = torch.cat([res.num_inliers[:, None].to(torch.float32),
+                            res.num_correspondences[:, None].to(torch.float32),
+                            res.chi_inliers[:, None], res.estimate], dim=1).cpu().numpy()
+        return gate_candidates(self.cfg, [(query, m) for m in cands], packed[:, 0],
+                               packed[:, 1], packed[:, 2], packed[:, 3:6])
 
 
 class ClosureValidator:

@@ -75,6 +75,44 @@ def atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(y < 0, -r, r)
 
 
+# ------------------------------------------------------------ fixed canvas
+
+def beam_fields(x: torch.Tensor, y: torch.Tensor, v: torch.Tensor, proj: PolarProjection):
+    """Depth, beam column (float, floor applied) and the projection gate of
+    sensor-frame points; ``v`` is the validity as bool or float."""
+    d = torch.sqrt(x * x + y * y)
+    colf = torch.floor(atan2_poly(y, x) * proj.f + proj.c)
+    ok = ((v > 0) & (colf >= 0) & (colf < proj.cols)
+          & (d >= proj.range_min) & (d <= proj.range_max))
+    return d, colf, ok
+
+
+def tied_min_onehot(d: torch.Tensor, colf: torch.Tensor, ok: torch.Tensor, cols_padded: int):
+    """Dense [N, B] masked minimum: per beam the closest depth (1e30 where
+    empty) and the normalised one-hot of the points tied at it (column b
+    sums to 1 where beam b holds a point), plus the dense depth matrix."""
+    beam_ids = torch.arange(cols_padded, device=d.device)
+    hit = (colf.to(torch.int64)[:, None] == beam_ids) & ok[:, None]
+    dm = torch.where(hit, d[:, None], torch.full_like(d[:, None], _BIG))
+    dmin = dm.min(dim=0).values
+    is_min = ((dm <= dmin[None, :]) & hit).to(torch.float32)
+    cnt = torch.clamp(is_min.sum(dim=0), min=1.0)
+    return dmin, is_min / cnt[None, :], dm
+
+
+def build_canvasT(x, y, nx, ny, v, cols_padded: int, proj: PolarProjection) -> torch.Tensor:
+    """Dense z-buffer of a cloud (not beam-indexed, [N] fields) at the
+    identity camera -> canvas [8, B]: closest depth per beam, the mean of
+    the points tied at it, has-point. Counterpart of ``build_canvasT`` of
+    the JAX package's ``_beam_kernels``; ``csrc/frame_common.cuh`` holds
+    the device function."""
+    d, colf, ok = beam_fields(x, y, v, proj)
+    dmin, hot, _ = tied_min_onehot(d, colf, ok, cols_padded)
+    has = (hot.sum(dim=0) > 0).to(torch.float32)
+    zeros = torch.zeros_like(dmin)
+    return torch.stack([dmin, x @ hot, y @ hot, nx @ hot, ny @ hot, has, zeros, zeros])
+
+
 # ------------------------------------------------------------ moving cloud
 
 def moving_fields(mov, T: torch.Tensor, proj: PolarProjection) -> dict:

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface (the frame kernels share
-the device functions of ``csrc/frame_common.cuh``) and is compiled by ``nvcc``
+Each ``csrc/<name>.cu`` has a plain C interface (the beam-space kernels
+share the device functions of ``csrc/frame_common.cuh``) and is compiled by ``nvcc``
 into ``build/torch_kernels/lib<name>.so`` at the repository root, then
 loaded with ``ctypes``. A build takes seconds; nothing here runs at import
 time. The C entry points return a ``cudaError_t`` (0 = success).
@@ -20,7 +20,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-KERNELS = ("frame_kernel", "nn_icp_kernel", "stream_kernel")
+KERNELS = ("frame_kernel", "nn_icp_kernel", "stream_kernel", "projector_kernel",
+           "scene_kernel", "banded_align_kernel", "projective_align_kernel")
 
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # operation as the plain PyTorch versions do (one kernel per operation)
@@ -28,10 +29,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 
 _VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+# (cloud xy, normal, valid, rows) twice, t0, prior, three outputs, params, stream
+_ALIGN_ARGS = ([_VOID] * 3 + [_INT]) * 2 + [_VOID] * 7
 _SIGNATURES = {
     "frame_kernel": {"frame_track_grid": [_VOID] * 6 + [ctypes.c_void_p, _VOID]},
     "nn_icp_kernel": {"nn_icp_align_pairs": [_VOID] * 5 + [ctypes.c_void_p, _VOID]},
     "stream_kernel": {"stream_track_grid": [_VOID] * 7 + [ctypes.c_void_p, _VOID]},
+    "projector_kernel": {"project_local": [_VOID] * 6},
+    "scene_kernel": {"scene_canvas": [_VOID] * 8},
+    "banded_align_kernel": {"banded_align": _ALIGN_ARGS},
+    "projective_align_kernel": {"projective_align": _ALIGN_ARGS},
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -108,6 +116,29 @@ def check_tensor(name: str, t, shape: tuple, device) -> None:
             or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous float32 {shape} tensor on "
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def cloud_tensors(name: str, xy, normal, valid, device):
+    """The fields of a cloud as the kernels take them: contiguous float32
+    [N, 2] coordinates and normals and a contiguous bool [N] mask, all on
+    ``device`` (no copy when they already are). ``normal`` may be None."""
+    n = xy.shape[0]
+    out = []
+    for label, t, shape, dtype in ((f"{name}.xy", xy, (n, 2), torch.float32),
+                                   (f"{name}.normal", normal, (n, 2), torch.float32),
+                                   (f"{name}.valid", valid, (n,), torch.bool)):
+        if t is None:
+            out.append(None)
+            continue
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{label}: need a {dtype} {shape} tensor on {device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        out.append(t.contiguous())
+    return out
+
+
+def stream_of(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def error_string(code: int) -> str:

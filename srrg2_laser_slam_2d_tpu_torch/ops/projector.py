@@ -1,9 +1,12 @@
 """Polar projection: point clouds to per-beam z-buffer canvases and back.
 
-Counterpart of ``srrg2_laser_slam_2d_tpu/ops/projector.py`` with its
-reference ("scatter") z-buffer: beam = floor(atan2(y, x) * f + c), range
-gates, the closest depth wins each beam and the lowest index wins ties.
-Every function accepts leading batch dimensions.
+Counterpart of ``srrg2_laser_slam_2d_tpu/ops/projector.py``: beam =
+floor(atan2(y, x) * f + c), range gates, the closest depth wins each beam
+and the lowest index wins ties. ``project_local`` has three z-buffer
+backends (``ZBUFFER_BACKEND``): "scatter" (two scatter-min passes, the
+reference formulation), "sort" (one keyed sort) and "kernel" (the CUDA
+kernel of ``ops/projector_kernel.py``). Every function accepts leading
+batch dimensions.
 """
 
 from __future__ import annotations
@@ -68,15 +71,84 @@ def project(proj: PolarProjection, camera_pose: torch.Tensor,
     return project_local(proj, local), local
 
 
+# Backend of ``project_local``: "scatter" | "sort" | "kernel" | None. None
+# picks "scatter" on the CPU and on the card alike. (The JAX package picks
+# "sort" on a TPU, where a scatter with repeated indices runs as a serial
+# loop; on the card ``scatter_reduce`` is a pass of atomics, takes the
+# detector's batch of candidate scenes in one call and keeps exact depths,
+# while the kernel z-buffers one cloud per launch and assigns beams with the
+# polynomial arctangent, so the parity route keeps "scatter" unless asked.)
+ZBUFFER_BACKEND: str | None = None
+
+
+def _zbuffer_backend() -> str:
+    backend = "scatter" if ZBUFFER_BACKEND is None else ZBUFFER_BACKEND
+    if backend not in ("scatter", "sort", "kernel"):
+        raise ValueError(f"unknown z-buffer backend {backend!r}")
+    return backend
+
+
 def project_local(proj: PolarProjection, local: Cloud) -> Canvas:
-    """Scatter-min z-buffer of a cloud already in the sensor frame."""
-    n = local.capacity
-    dev = local.xy.device
+    """Project a cloud already expressed in the sensor frame."""
+    backend = _zbuffer_backend()
+    if backend == "sort":
+        return project_local_sort(proj, local)
+    if backend == "kernel":
+        from . import projector_kernel
+
+        batch = local.xy.shape[:-2]
+        if not batch:
+            return projector_kernel.project_local(proj, local.xy, local.valid)
+        flat = local.map(lambda x: x.reshape((-1,) + x.shape[len(batch):]))
+        outs = [projector_kernel.project_local(proj, flat.xy[k], flat.valid[k])
+                for k in range(flat.xy.shape[0])]
+        return Canvas(*(torch.stack(f).reshape(batch + (proj.cols,)) for f in zip(*outs)))
+    return project_local_scatter(proj, local)
+
+
+def _beam_of(proj: PolarProjection, local: Cloud):
     x, y = local.xy[..., 0], local.xy[..., 1]
     depth = torch.sqrt(x * x + y * y)
     col = torch.floor(torch.atan2(y, x) * proj.f + proj.c).to(torch.int64)
     ok = (local.valid & (col >= 0) & (col < proj.cols)
           & (depth >= proj.range_min) & (depth <= proj.range_max))
+    return depth, col, ok
+
+
+def project_local_sort(proj: PolarProjection, local: Cloud) -> Canvas:
+    """Sort-based z-buffer: points keyed by (beam, depth quantised to 2^21
+    steps over ``range_max``), one stable sort, each beam's winner its first
+    sorted entry (the lowest index among equal keys). The quantisation only
+    decides between points closer than ~10 um; canvas depths are the
+    winner's exact depth."""
+    n = local.capacity
+    dev = local.xy.device
+    depth, col, ok = _beam_of(proj, local)
+    dq = torch.clamp((depth * (float(2**21) / proj.range_max)).to(torch.int64), 0, 2**21 - 1)
+    sentinel = 2**31 - 1
+    key = torch.where(ok, col * (2**21) + dq, torch.full_like(col, sentinel))
+    key_s, idx_s = torch.sort(key, dim=-1, stable=True)
+    col_s = key_s >> 21
+    first = torch.cat([torch.ones_like(col_s[..., :1], dtype=torch.bool),
+                       col_s[..., 1:] != col_s[..., :-1]], dim=-1)
+    winner = (key_s != sentinel) & first
+    tgt = torch.where(winner, col_s, torch.full_like(col_s, proj.cols))
+    batch = depth.shape[:-1]
+    ibuf = torch.full(batch + (proj.cols + 1,), -1, dtype=torch.int64,
+                      device=dev).scatter(-1, tgt, idx_s)[..., : proj.cols]
+    dbuf = torch.full(batch + (proj.cols + 1,), _BIG, dtype=torch.float32,
+                      device=dev).scatter(-1, tgt, torch.gather(depth, -1, idx_s))
+    v = ibuf >= 0
+    return Canvas(depth=torch.where(v, dbuf[..., : proj.cols], torch.full_like(ibuf, _BIG,
+                                                                              dtype=torch.float32)),
+                  idx=ibuf, valid=v)
+
+
+def project_local_scatter(proj: PolarProjection, local: Cloud) -> Canvas:
+    """Scatter-min z-buffer (the reference formulation)."""
+    n = local.capacity
+    dev = local.xy.device
+    depth, col, ok = _beam_of(proj, local)
     batch = depth.shape[:-1]
     col_s = torch.where(ok, col, torch.full_like(col, proj.cols))
     d_s = torch.where(ok, depth, torch.full_like(depth, _BIG))

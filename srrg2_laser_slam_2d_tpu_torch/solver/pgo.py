@@ -1,8 +1,8 @@
 """SE(2) pose-graph optimization: dense Gauss-Newton over geodesic
 pose-pose edges. Counterpart of ``srrg2_laser_slam_2d_tpu/solver/pgo.py``
 (``PGOConfig``, ``PoseGraph``, ``linearize``, ``solve_spd_scaled``,
-``optimize`` with ``algorithm="gn"``); the Levenberg-Marquardt variant is
-not ported yet.
+``optimize`` with ``algorithm="gn"``, ``trim`` / ``untrim_poses``); the
+Levenberg-Marquardt variant is not ported yet.
 
 Everything stays float32, as in the reference. The per-edge Jacobians are
 written out: for the pre-multiplied increments, with A = R(theta_i +
@@ -202,3 +202,24 @@ def round_capacity(n: int, minimum: int = 16) -> int:
     while c < n:
         c *= 2
     return c
+
+
+def trim(graph: PoseGraph, n_vars: int, n_edges: int) -> tuple[PoseGraph, int, int]:
+    """Slice a static-capacity graph down to power-of-two capacities that
+    cover the live variables and edges, so the dense solve is sized to the
+    problem. Returns (trimmed graph, variable capacity, edge capacity)."""
+    vc = min(round_capacity(n_vars), graph.var_capacity)
+    ec = min(round_capacity(n_edges), graph.edge_capacity)
+    trimmed = PoseGraph(
+        poses=graph.poses[:vc], var_valid=graph.var_valid[:vc],
+        var_fixed=graph.var_fixed[:vc], edge_i=graph.edge_i[:ec], edge_j=graph.edge_j[:ec],
+        edge_meas=graph.edge_meas[:ec], edge_info=graph.edge_info[:ec],
+        edge_valid=graph.edge_valid[:ec])
+    return trimmed, vc, ec
+
+
+def untrim_poses(full: PoseGraph, solved: PoseGraph) -> PoseGraph:
+    """The full-capacity graph with the solved pose block written back."""
+    poses = full.poses.clone()
+    poses[: solved.var_capacity] = solved.poses
+    return full._replace(poses=poses)

@@ -110,6 +110,12 @@ def repad(cloud: Cloud, capacity: int) -> Cloud:
                  c.valid[..., :capacity])
 
 
+def clip_ball(cloud: Cloud, center: torch.Tensor, max_range: float) -> Cloud:
+    """Radial clip around ``center`` [2], as a mask update."""
+    d2 = ((cloud.xy - center) ** 2).sum(dim=-1)
+    return Cloud(cloud.xy, cloud.normal, cloud.valid & (d2 <= max_range * max_range))
+
+
 def _normalize_mean_normals(mean_nm: torch.Tensor) -> torch.Tensor:
     norm = torch.linalg.norm(mean_nm, dim=-1, keepdim=True)
     return torch.where(norm > 1e-12, mean_nm / torch.clamp(norm, min=1e-12),

@@ -11,7 +11,9 @@ card need not have.)
 Tolerances: kernel and plain version round the same float32 operations in
 the same order and differ only in the order of their block sums, so poses
 and payload points agree to 1e-4 over 16 frames and NN-ICP estimates to
-1e-4 (chip_smoke.py holds the full-width shapes to 1e-3)."""
+1e-4 (chip_smoke.py holds the full-width shapes to 1e-3). The projector and
+scene kernels do no sums: indices, rows and depths are EQUAL, fields agree
+to 1e-6; the aligner kernels' estimates agree to 1e-5, their counts to 1."""
 
 import dataclasses
 
@@ -22,8 +24,15 @@ import torch
 from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
 from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import (
     LaserModel, PreprocessorConfig, ScanPreprocessor)
+from srrg2_laser_slam_2d_tpu_torch.models import tracker as tr
+from srrg2_laser_slam_2d_tpu_torch.ops import banded_align_kernel as bak
+from srrg2_laser_slam_2d_tpu_torch.ops import clip as clip_op
 from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
 from srrg2_laser_slam_2d_tpu_torch.ops import nn_icp_kernel as nk
+from srrg2_laser_slam_2d_tpu_torch.ops import projective_align_kernel as pak
+from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
+from srrg2_laser_slam_2d_tpu_torch.ops import projector_kernel as pk
+from srrg2_laser_slam_2d_tpu_torch.ops import scene_kernel as sck
 from srrg2_laser_slam_2d_tpu_torch.ops import stream_kernel as sk
 from srrg2_laser_slam_2d_tpu_torch.utils.cloud import Cloud
 
@@ -223,3 +232,155 @@ def test_chunked_runner_launches_both_kernels_on_card(card):
     assert np.isfinite(traj).all()
     # two full laps end where they began, at the trajectory's origin
     assert np.abs(traj[-1, :2]).max() < 0.5
+
+
+# ------------------------------------------------- the per-message kernels
+
+def _random_cloud(card, seed: int, n: int) -> Cloud:
+    rng = np.random.default_rng(seed)
+    nm = rng.normal(size=(n, 2))
+    nm /= np.linalg.norm(nm, axis=1, keepdims=True)
+    return Cloud(torch.as_tensor(rng.uniform(-6, 6, (n, 2)), dtype=torch.float32, device=card),
+                 torch.as_tensor(nm, dtype=torch.float32, device=card),
+                 torch.as_tensor(rng.uniform(size=n) > 0.1, device=card))
+
+
+def _with_ties(cloud: Cloud, proj, rows, depth: float, beam: int) -> Cloud:
+    """``cloud`` with the given rows moved onto one beam at one depth."""
+    ang = (beam + 0.5 - proj.c) / proj.f
+    xy, valid = cloud.xy.clone(), cloud.valid.clone()
+    for r in rows:
+        xy[r] = torch.tensor([depth * np.cos(ang), depth * np.sin(ang)], dtype=torch.float32)
+        valid[r] = True
+    return Cloud(xy, cloud.normal, valid)
+
+
+@pytest.mark.parametrize("n", [1000, 4096])
+def test_projector_kernel_matches_plain_on_card(card, n):
+    proj = projector_op.PolarProjection.make(cols=361, angle_min=-np.pi, angle_max=np.pi,
+                                             range_min=0.3, range_max=20.0)
+    cloud = _with_ties(_random_cloud(card, 5, n), proj, (17, 400, 900), 0.5, 100)
+    before = pk.launches
+    k = pk.project_local(proj, cloud.xy, cloud.valid)
+    torch.cuda.synchronize()
+    assert pk.launches == before + 1
+    p = pk.project_local_plain(proj, cloud.xy, cloud.valid)
+    assert torch.equal(k.idx, p.idx) and torch.equal(k.valid, p.valid)
+    assert torch.equal(k.depth, p.depth) and int(k.valid.sum()) > 200
+    assert int(k.idx[100]) == 17                      # the lowest index of the tie
+    projector_op.ZBUFFER_BACKEND = "kernel"
+    try:
+        via_switch = projector_op.project_local(proj, cloud)
+    finally:
+        projector_op.ZBUFFER_BACKEND = None
+    assert torch.equal(via_switch.idx, k.idx) and pk.launches == before + 2
+
+
+@pytest.mark.parametrize("n,chunk", [(1000, 256), (4096, 1024), (8192, 1024)])
+def test_scene_kernel_matches_plain_on_card(card, n, chunk):
+    proj = projector_op.PolarProjection.make(cols=361, angle_min=-np.pi, angle_max=np.pi,
+                                             range_min=0.3, range_max=20.0)
+    cam = torch.tensor([0.3, -0.2, 0.4], device=card)
+    # rows 17 and 40 tie inside the first chunk, row 900 ties from a later one
+    local = _with_ties(_random_cloud(card, 6, n), proj, (17, 40, 900), 0.5, 100)
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+    scene = cloud_op.transform(local, cam).map(lambda x: x.contiguous())
+    before = sck.launches
+    ko, kr = sck.canvas(proj, scene, cam, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sck.launches == before + 1
+    po, p_rows = sck.canvas_plain(proj, scene, cam, chunk=chunk)
+    assert torch.equal(kr, p_rows) and torch.equal(ko[0], po[0]) and torch.equal(ko[5], po[5])
+    np.testing.assert_allclose(ko.cpu().numpy(), po.cpu().numpy(), atol=1e-6)
+    assert int((kr >= 0).sum()) > 200
+    kclip = sck.clip_projective(proj, scene, torch.zeros(3, device=card), cam, chunk=chunk)
+    assert kclip.capacity == 384 and sck.launches == before + 2
+
+
+@pytest.fixture(scope="module")
+def room_scans(card):
+    """Six scans of a drive through the room at 361 beams, as clouds on the
+    card, with the poses that serve as odometry."""
+    T = 6
+    poses = np.stack([np.linspace(-2.0, -1.0, T), np.linspace(-1.0, -0.5, T),
+                      np.linspace(0.0, 0.15, T)], 1).astype(np.float32)
+    pre = ScanPreprocessor(PreprocessorConfig(voxelize_resolution=0.02, normal_window=8),
+                           device=card)
+    pre.set_model(LaserModel(361, -np.pi, np.pi, 0.0, 30.0))
+    clouds = pre.compute(_room_ranges(poses, 361))
+    return [clouds.map(lambda x: x[k].contiguous()) for k in range(T)], poses
+
+
+def _tracker_config(**flags):
+    # 400 beams against scans of 361: on the scans' own grid every point would
+    # sit on a beam-bin edge, where the card's and the host's atan2 may differ
+    proj = projector_op.PolarProjection.make(cols=400, angle_min=-np.pi, angle_max=np.pi,
+                                             range_min=0.3, range_max=20.0)
+    return tr.TrackerConfig(scene_capacity=2048, projection=proj, **flags)
+
+
+@pytest.mark.parametrize("banded", [True, False])
+def test_align_kernels_match_plain_on_card(card, room_scans, banded):
+    clouds, poses = room_scans
+    cfg = _tracker_config()
+    st = tr.populate(cfg, tr.init_state(cfg, device=card), clouds[0])
+    S = st.sensor_in_robot
+    if banded:
+        mod, fn, plain = bak, bak.fused_projective_align_banded, \
+            bak.fused_projective_align_banded_plain
+        clip = clip_op.clip_projective(cfg.projection, st.scene, st.robot_in_local_map, S)
+    else:
+        mod, fn, plain = pak, pak.fused_projective_align, pak.fused_projective_align_plain
+        clip = sck.clip_projective(cfg.projection, st.scene, st.robot_in_local_map, S)
+    t0 = torch.tensor([-0.2, -0.1, -0.03], device=card)
+    m = clouds[1]
+    args = (cfg.projection, m.xy, m.normal, m.valid, clip.xy.contiguous(),
+            clip.normal.contiguous(), clip.valid.contiguous(), t0)
+    kw = dict(odom_prior=t0, iterations=10, chi_threshold=0.05, odom_weight=1.0)
+    before = mod.launches
+    k = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    p = plain(*args, **kw)
+    np.testing.assert_allclose(k.estimate.cpu().numpy(), p.estimate.cpu().numpy(), atol=1e-5)
+    assert float(p.num_inliers) > 100
+    assert abs(float(k.num_corr) - float(p.num_corr)) <= 1
+    assert abs(float(k.num_inliers) - float(p.num_inliers)) <= 1
+    np.testing.assert_allclose(float(k.chi), float(p.chi), rtol=1e-3)
+    assert k.iter_stats.shape == (10, 4)
+    assert float((k.iter_stats[:, 1:3] - p.iter_stats[:, 1:3]).abs().max()) <= 1
+    np.testing.assert_allclose(k.iter_stats[:, 0].cpu().numpy(), p.iter_stats[:, 0].cpu().numpy(),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(use_fused_aligner=True, banded_aligner=True),
+    dict(use_fused_aligner=True, banded_aligner=True, reuse_clip_canvas=True,
+         lean_scene_ops=True),
+    dict(use_fused_aligner=True, use_fused_scene_ops=True),
+    dict(use_fused_aligner=True, use_fused_scene_ops=True, reuse_clip_canvas=True),
+], ids=["banded", "banded-lean", "dense-scene-ops", "dense-scene-ops-reuse"])
+def test_laser_tracker_on_card_follows_the_plain_versions(card, room_scans, flags):
+    """The tracker over six scans: on the card every kernel of the route is
+    launched; on the CPU the same code takes the plain versions. Poses agree
+    to 1e-4 (block sums in another order; a flipped bin-edge cell would show
+    as 1e-3)."""
+    clouds, poses = room_scans
+    cfg = _tracker_config(**flags)
+    on_card = tr.LaserTracker(cfg, device=card)
+    on_cpu = tr.LaserTracker(cfg, device="cpu")
+    bak.launches = pak.launches = sck.launches = 0
+    for k, c in enumerate(clouds):
+        on_card.compute(c, poses[k])
+        on_cpu.compute(c.to("cpu"), poses[k])
+    steps = len(clouds) - 1
+    assert on_card.steps == steps
+    if flags.get("banded_aligner"):
+        assert bak.launches == steps and pak.launches == 0
+    else:
+        assert pak.launches == steps and sck.launches == 3 * steps - on_card.cached_clips
+    np.testing.assert_allclose(on_card.robot_in_local_map.cpu().numpy(),
+                               on_cpu.robot_in_local_map.numpy(), atol=1e-4)
+    assert np.linalg.norm(on_cpu.robot_in_local_map.numpy()[:2]) > 0.5
+    # a cell on a bin edge may merge on one side and append on the other
+    assert abs(int(on_card.capture_scene().count()) - int(on_cpu.capture_scene().count())) <= 4

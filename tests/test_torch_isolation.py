@@ -26,9 +26,21 @@ def _imported_modules(path: Path):
             yield node.module
 
 
+PER_MESSAGE_MODULES = (
+    "apps/__init__.py", "apps/generic_bench_app.py", "models/runner.py", "models/slam.py",
+    "models/tracker.py", "models/fast_tracker.py", "models/loop_closure.py", "ops/icp.py",
+    "ops/clip.py", "ops/merge.py", "ops/projector.py", "ops/projector_kernel.py",
+    "ops/scene_kernel.py", "ops/banded_align_kernel.py", "ops/projective_align_kernel.py",
+    "solver/pgo.py", "utils/presets.py", "utils/status.py", "utils/interop.py",
+)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
-    assert len(files) > 20
+    assert len(files) > 40
+    scanned = {str(f.relative_to(ROOT / "srrg2_laser_slam_2d_tpu_torch"))
+               for f in files if f.name != "chip_smoke.py"}
+    assert set(PER_MESSAGE_MODULES) <= scanned, set(PER_MESSAGE_MODULES) - scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -40,13 +52,18 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     from srrg2_laser_slam_2d_tpu_torch.models import loop_closure as lc
     from srrg2_laser_slam_2d_tpu_torch.models.fast_tracker import FastTracker
     from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import ScanPreprocessor
-    from srrg2_laser_slam_2d_tpu_torch.models.slam import GraphSLAMConfig, frame_spec
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+    from srrg2_laser_slam_2d_tpu_torch.models.slam import (GraphSLAM2D, GraphSLAMConfig,
+                                                           frame_spec)
+    from srrg2_laser_slam_2d_tpu_torch.models.tracker import LaserTracker
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GraphSLAMConfig(enable_loop_closure=False)
     public = [ChunkedSlamRunner, lambda **kw: ChunkedGraphSLAM2D(cfg, **kw),
               lambda **kw: FastTracker(frame_spec(cfg), **kw), ScanPreprocessor,
-              lambda **kw: lc.ClosureValidator(cfg.validator, **kw)]
+              lambda **kw: lc.ClosureValidator(cfg.validator, **kw),
+              SlamRunner, lambda **kw: GraphSLAM2D(cfg, **kw),
+              lambda **kw: LaserTracker(cfg.tracker, **kw)]
     for make in public:
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -104,3 +121,42 @@ def test_stream_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         stream_kernel.stream_step(spec, measC[0].to("meta"), odomS[0].to("meta"),
                                   cacheB.to("meta"), poseB.to("meta"))
+
+
+def test_per_message_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """The four per-message kernels' wrappers: CPU tensors go to the plain
+    version and count no launch; a tensor on any other device must launch
+    the kernel (a meta tensor, which no kernel takes, is refused)."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import (banded_align_kernel,
+                                                   projective_align_kernel,
+                                                   projector_kernel, scene_kernel)
+    from srrg2_laser_slam_2d_tpu_torch.ops.projector import PolarProjection
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+
+    proj = PolarProjection.make(cols=100, angle_min=-1.0, angle_max=1.0)
+    xy = torch.tensor([[1.0, 0.1], [2.0, -0.3], [1.5, 0.4]])
+    c = cloud_op.from_numpy(xy.numpy(), normal=torch.tensor([[1.0, 0.0]] * 3).numpy())
+    beams = cloud_op.empty(100)
+    mods = (projector_kernel, scene_kernel, banded_align_kernel, projective_align_kernel)
+    before = [m.launches for m in mods]
+    assert int(projector_kernel.project_local(proj, c.xy, c.valid).valid.sum()) == 3
+    out, rows = scene_kernel.canvas(proj, c, torch.zeros(3))
+    assert out.shape == (6, 128) and int((rows >= 0).sum()) == 3
+    r = banded_align_kernel.fused_projective_align_banded(
+        proj, c.xy, c.normal, c.valid, beams.xy, beams.normal, beams.valid, torch.zeros(3),
+        iterations=2)
+    assert r.iter_stats.shape == (2, 4)
+    r = projective_align_kernel.fused_projective_align(
+        proj, c.xy, c.normal, c.valid, c.xy, c.normal, c.valid, torch.zeros(3), iterations=2)
+    assert float(r.num_corr) == 3.0
+    assert [m.launches for m in mods] == before
+    m = c.to("meta")
+    with pytest.raises(ValueError):
+        projector_kernel.project_local(proj, m.xy, m.valid)
+    with pytest.raises(ValueError):
+        scene_kernel.canvas(proj, m, torch.zeros(3, device="meta"))
+    for fn in (banded_align_kernel.fused_projective_align_banded,
+               projective_align_kernel.fused_projective_align):
+        with pytest.raises(ValueError):
+            fn(proj, m.xy, m.normal, m.valid, beams.xy.to("meta"), beams.normal.to("meta"),
+               beams.valid.to("meta"), torch.zeros(3, device="meta"))
