@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. print the card's name and power limit, build all seven kernels from
+  1. print the card's name and power limit, build all ten kernels from
      ``srrg2_laser_slam_2d_tpu_torch/csrc`` (one ``nvcc`` per source, all
      started together);
   2. the frame kernel against its plain PyTorch version on the card, on the
@@ -53,14 +53,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      message) over the WHOLE corridor through ``generic_bench_app``'s
      function under ``corridor.json``: finite trajectory, a split, an
      accepted closure; the gate verdict is printed, not asserted;
-  9. one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
-     main path, its error against the plain version, its time, the plain
-     version's time and its bound.
+  9. the MULTI path (two lasers and odometry) on a dual-laser log of the
+     circle drive (``dual_drive``: 400 steps, 2 x 721 beams, front laser
+     blanked over steps 100-159): the multi-cue aligner kernel against its
+     plain version on a ``MultiCueTracker``'s scene after 10 packs (the
+     clips of both cues, 2 x 721 rows, against the next pack); the two probe
+     kernels against their plain versions (the shift z-buffer on 20 scans'
+     cells, the banded gather in both forms at K = 8 and 32); the three
+     rates of ``bench/multicue_bench`` (128 frames, one pass after the
+     warm-up) with the kernel's share of a fused step; then the MULTI loop
+     through ``SlamRunner(scan_topics=...)`` under ``multi_slam`` and the
+     same log through the front laser alone under ``laser0_slam``, the
+     kernel's launches counted from 0 and equal to the tracked frames, dual
+     ATE <= single-cue ATE and a graph that closes;
+  10. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+     launches on its main path (the probes: their own probe runs), its error
+     against the plain version, its time, the plain version's time and its
+     bound.
 The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
-``chiprun_out/chip_smoke.json``. Nothing of the earlier paths is cut: the
-whole script takes about six minutes of the card, a third of its limit.
-``--only message-kernels`` / ``--only message-path`` run the build and part
-5 or part 8 alone while developing, and print no result lines.
+``chiprun_out/chip_smoke.json``. Nothing of the earlier paths is cut.
+``--only message-kernels`` / ``--only message-path`` / ``--only multi`` run
+the build and part 5, part 8 or part 9 alone while developing, and print no
+result lines.
 
 Tolerances. Kernel and plain version run the same float32 operations in
 the same order (the CUDA sources are built without multiply-add
@@ -102,8 +116,11 @@ no sums: winner indices, rows and depths are EQUAL to the plain version's
 and the fields agree within 1e-6 (a single winner is copied; two points tied
 at a depth are averaged exactly). The aligner kernels' estimates agree
 within 1e-5, the correspondence and inlier counts of every pass are equal
-or 1 apart (a beam at a gate), chi within rtol 1e-3. The four kernels run
-for tens of microseconds, less than the host takes to enqueue them, so
+or 1 apart (a beam at a gate; 2 for the multi-cue aligner, which matches
+twice the rows), chi within rtol 1e-3. The shift z-buffer probe's winners
+are EQUAL and its depths within 1e-6; the gather probe is EQUAL (the same
+additions in the same order). The per-message, multi-cue and probe
+kernels run for microseconds to tens of microseconds, less than the host takes to enqueue them, so
 their ``ms`` is the device time with the queue kept full behind three large
 matrix products (``device_time_ms``); ``host_paced_ms`` is the same calls at
 the host's pace.
@@ -738,14 +755,18 @@ def check_message_kernels(msgs, slam_cfg, pcfg, device) -> list[dict]:
 # ------------------------------------------------------ the per-message path
 
 def _launch_modules():
-    from srrg2_laser_slam_2d_tpu_torch.ops import (banded_align_kernel, frame_kernel,
+    from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather
+    from srrg2_laser_slam_2d_tpu_torch.ops import (banded_align_kernel, beam_zbuffer_kernel,
+                                                   frame_kernel, multicue_align_kernel,
                                                    nn_icp_kernel, projective_align_kernel,
                                                    projector_kernel, scene_kernel,
                                                    stream_kernel)
     return {"frame_kernel": frame_kernel, "nn_icp_kernel": nn_icp_kernel,
             "stream_kernel": stream_kernel, "projector_kernel": projector_kernel,
             "scene_kernel": scene_kernel, "banded_align_kernel": banded_align_kernel,
-            "projective_align_kernel": projective_align_kernel}
+            "projective_align_kernel": projective_align_kernel,
+            "multicue_align_kernel": multicue_align_kernel,
+            "beam_zbuffer_kernel": beam_zbuffer_kernel, "gather_probe_kernel": exp_gather}
 
 
 def reset_launches() -> None:
@@ -1000,11 +1021,320 @@ def headline_run(device) -> dict:
                          "frame_kernel_single_stream": frame_kernel.launches}}
 
 
+# ------------------------------------------------------------ the MULTI path
+
+MULTI_STEPS = 400
+MULTI_BEAMS = 721
+MULTI_OCCLUDED = (0, 100, 160)     # the front laser sees nothing over steps 100-159
+MULTI_FOV = (-np.pi / 2, np.pi / 2)  # each laser's field of view: 180 degrees
+# m, the dual run's ATE over the whole drive: on the CPU the JAX package's
+# kernel route reads 0.1249 m on this drive, the front laser alone 1.53 m
+# (tests/multi_loop_witness.py); a tracker that loses the heading reads ~1 m
+MULTI_ATE_LIMIT = 0.2
+MULTI_KERNEL_FRAMES = 10
+MULTI_BENCH_FRAMES = 128
+MULTI_EXTRINSICS = ((0.2, 0.0, 0.0), (-0.2, 0.0, float(np.pi)))
+MULTI_FRAMES = ("laser_frame_0", "laser_frame_1")
+
+
+def multi_preprocessor():
+    from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import PreprocessorConfig
+
+    return PreprocessorConfig(voxelize_resolution=0.02, normal_window=8)
+
+
+def dual_drive(device):
+    """The MULTI loop's log: the circle drive of tests/test_torch_slam.py
+    (0.15 m and 2 pi / 40 per step, seed 5), ten laps, a front and a rear
+    laser of 721 beams over 180 degrees each, integrated odometry noise 0.02,
+    the front laser blanked over ``MULTI_OCCLUDED``. Returns the messages
+    and the ground truth."""
+    from srrg2_laser_slam_2d_tpu_torch.apps.synthetic_scene_generator import (
+        dual_dataset_to_messages)
+    from srrg2_laser_slam_2d_tpu_torch.bench import synthetic
+
+    common = dict(steps=MULTI_STEPS, num_beams=MULTI_BEAMS, max_variance=0.02,
+                  drift=(0.15, 0.0, 2 * np.pi / 40), seed=5, angle_min=MULTI_FOV[0],
+                  angle_max=MULTI_FOV[1])
+    dss = [synthetic.simulate(synthetic.SyntheticConfig(sensor_in_robot=e, **common), device)
+           for e in MULTI_EXTRINSICS]
+    msgs = dual_dataset_to_messages(*dss, frames=MULTI_FRAMES, odom_noise=0.02,
+                                    occlude=MULTI_OCCLUDED, seed=5)
+    return msgs, dss[0].robot_poses
+
+
+def dual_packs(msgs, n: int, device):
+    """The first ``n`` dual-laser packs of the log as cue-stacked clouds on
+    the card, with the odometry of each."""
+    from srrg2_laser_slam_2d_tpu_torch.io.messages import LaserMessage, OdometryMessage
+    from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import LaserModel, ScanPreprocessor
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+
+    pre = ScanPreprocessor(multi_preprocessor(), device=device)
+    ranges, odoms = {"/scan_0": [], "/scan_1": []}, []
+    for m in msgs:
+        if isinstance(m, LaserMessage):
+            pre.set_model(LaserModel(len(m.ranges), m.angle_min, m.angle_max, m.range_min,
+                                     m.range_max))
+            ranges[m.topic].append(np.asarray(m.ranges, np.float32))
+        elif isinstance(m, OdometryMessage):
+            odoms.append(np.asarray(m.pose, np.float32))
+            if len(odoms) == n:
+                break
+    clouds = [pre.compute(np.stack(ranges[t])) for t in ("/scan_0", "/scan_1")]
+    packs = [cloud_op.stack([c.map(lambda x: x[k]) for c in clouds]) for k in range(n)]
+    return packs, np.stack(odoms)
+
+
+def check_multicue_kernel(msgs, device) -> dict:
+    """Kernel 6 against its plain version on real full-width inputs: the
+    scene of a ``MultiCueTracker`` (``multi_slam``'s tracker, kernel route)
+    after ``MULTI_KERNEL_FRAMES`` packs of the drive, both cues' clips of it
+    (2 x 721 rows) and the next pack's measurements (2 x 721 rows), the
+    odometry step as initial guess and prior, 10 iterations. Estimate within
+    1e-5, the counts of every pass equal or 2 apart (a beam at a gate), chi
+    within rtol 1e-3."""
+    from srrg2_laser_slam_2d_tpu_torch.models import tracker as tracker_mod
+    from srrg2_laser_slam_2d_tpu_torch.ops import multicue_align_kernel as mak
+    from srrg2_laser_slam_2d_tpu_torch.utils import presets
+
+    cfg = presets.multi_slam(MULTI_BEAMS, 8192, device=device)
+    tcfg, a = cfg.tracker, cfg.tracker.aligner
+    packs, odoms = dual_packs(msgs, MULTI_KERNEL_FRAMES + 1, device)
+    trk = tracker_mod.MultiCueTracker(tcfg, cfg.cue_extrinsics, device=device)
+    for k in range(MULTI_KERNEL_FRAMES):
+        trk.compute(packs[k], odoms[k])
+    st, extr = trk.state, trk.extrinsics
+    mov, T0 = tracker_mod.multi_step_inputs(tcfg, st, extr, torch.from_numpy(odoms[-1]).to(device),
+                                            st.has_odom)
+    m = packs[-1]
+    args, kw = tracker_mod.fused_multi_arguments(tcfg, m, extr, mov, T0)
+    k = mak.fused_projective_align_multi(*args, **kw)
+    torch.cuda.synchronize()
+    p = mak.fused_projective_align_multi_plain(*args, **kw)
+    err = float((k.estimate - p.estimate).abs().max())
+    ks = torch.cat([torch.stack([k.chi, k.num_corr, k.num_inliers, k.chi_inl_sum])[None],
+                    k.iter_stats])
+    ps = torch.cat([torch.stack([p.chi, p.num_corr, p.num_inliers, p.chi_inl_sum])[None],
+                    p.iter_stats])
+    count_diff = float((ks[:, 1:3] - ps[:, 1:3]).abs().max())
+    chi_rel = float(((ks[:, [0, 3]] - ps[:, [0, 3]]).abs()
+                     / ps[:, [0, 3]].abs().clamp(min=1e-3)).max())
+    C, F, M = m.xy.shape[0], m.xy.shape[1], mov.capacity
+    log(f"multi-cue align kernel C={C} F={F} M={M}: estimate {p.estimate.cpu().numpy().tolist()}, "
+        f"max abs err {err:.3g}; correspondences {float(p.num_corr):.0f}, inliers "
+        f"{float(p.num_inliers):.0f}, largest count difference over all passes "
+        f"{count_diff:.0f}, chi rel diff {chi_rel:.3g}")
+    assert float(p.num_inliers) >= 200, "the check needs a real alignment"
+    assert err <= 1e-5, f"multi-cue aligner: estimates differ by {err}"
+    assert count_diff <= 2 and chi_rel <= 1e-3
+    ms = device_time_ms(lambda: mak.fused_projective_align_multi(*args, **kw), 100)
+    paced_ms = cuda_time_ms(lambda: mak.fused_projective_align_multi(*args, **kw), 100)
+    plain_ms = cuda_time_ms(lambda: mak.fused_projective_align_multi_plain(*args, **kw), 3)
+    passes = a.max_iterations + 1
+    # in: both clouds (17 bytes a row), t0, prior, extrinsics; out: estimate,
+    # stats and the iteration records
+    bytes_moved = 17 * (C * F + M) + 24 + 12 * C + 4 * (3 + 4 + 4 * a.max_iterations)
+    flops = C * F * 46 + passes * mak.flops_per_pass(C, M)   # the kernel walks M rows
+    return entry("multicue_align_kernel", "multicue_align_kernel.cu",
+                 "pallas_multicue_align.py:224", err, ms, plain_ms, bytes_moved, flops,
+                 f"C={C} F={F} M={M} B={mak.cols_padded(tcfg.projection)} "
+                 f"iterations={a.max_iterations}", host_paced_ms=paced_ms,
+                 count_diff=count_diff, chi_rel_diff=chi_rel)
+
+
+def multicue_bench_run(device) -> dict:
+    """The three rates of ``bench/multicue_bench`` at full width (2 x 721
+    beams, 10 iterations), the depth cut to ``MULTI_BENCH_FRAMES`` frames,
+    one pass after the warm-up (the plain rates run at some 15 scans/s; the
+    module's own defaults take 256 frames, 10 chained passes, best of 3);
+    the kernel's time alone and its share of a fused step."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import multicue_bench
+
+    result = multicue_bench.run(frames=MULTI_BENCH_FRAMES, chain=1, reps=1, device=device)
+    log(f"multicue_bench: {json.dumps(result)}")
+    for key in ("dual_cue_fused_scans_per_sec", "dual_cue_plain_scans_per_sec",
+                "single_cue_plain_scans_per_sec"):
+        assert np.isfinite(result[key]) and result[key] > 0, key
+    assert result["kernel_launches"] == 2 * (MULTI_BENCH_FRAMES - 1), result["kernel_launches"]
+    return result
+
+
+def ate_vs(runner, gt_t, gt_poses) -> float:
+    from srrg2_laser_slam_2d_tpu_torch.bench import suite as suite_mod
+
+    bench = suite_mod.BenchmarkSuite()
+    bench.set_ground_truth(np.asarray(gt_t, np.float64), gt_poses)
+    for t, p, d in runner.trajectory:
+        bench.set_pose_estimate(p, t, d)
+    return float(bench.compute()["rmse_translation"])
+
+
+def multi_loop_run(msgs, gt_poses, device) -> dict:
+    """The MULTI loop: the dual log through ``SlamRunner`` with
+    ``scan_topics`` (extrinsics from the TF tree) under
+    ``presets.multi_slam(721, 8192)``, then the same log through the front
+    laser alone under ``presets.laser0_slam(721, 8192)`` (on a card: the
+    frame kernel per message); frames/s, phases, graph counters and ATE of
+    both. Kernel 6's launches are counted from 0 over the dual run and must
+    equal its tracked frames. PASS: dual ATE <= single-cue ATE, dual ATE <=
+    ``MULTI_ATE_LIMIT``, and the graph closes (more factors than a chain of
+    its variables)."""
+    from srrg2_laser_slam_2d_tpu_torch.io.sources import ListSource, SynchronizedSource
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+    from srrg2_laser_slam_2d_tpu_torch.utils import presets
+
+    gt_t = [m.timestamp for m in msgs if getattr(m, "topic", "") == "/scan_0"]
+    out, runners = {}, {}
+    for name, kw, slam_cfg in (
+            ("dual", dict(scan_topics=["/scan_0", "/scan_1"], sensor_frames=list(MULTI_FRAMES)),
+             presets.multi_slam(MULTI_BEAMS, 8192, device=device)),
+            ("single", dict(scan_topic="/scan_0", sensor_frame=MULTI_FRAMES[0]),
+             presets.laser0_slam(MULTI_BEAMS, 8192, device=device))):
+        runner = SlamRunner(slam_config=slam_cfg, preprocessor_config=multi_preprocessor(),
+                            base_frame="base_frame", device=device, **kw)
+        topics = ["/tf", "/odom"] + kw.get("scan_topics", [kw.get("scan_topic")])
+        reset_launches()
+        t0 = time.perf_counter()
+        n = runner.run(SynchronizedSource(ListSource(msgs), topics, time_interval=0.1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        slam = runner.slam
+        traj = np.stack([p for _, p, _ in runner.trajectory])
+        out[name] = {"frames": n, "wall_s": wall, "frames_per_s": n / wall,
+                     "tracker": type(slam.tracker).__name__,
+                     "tracked_frames": getattr(slam.tracker, "steps", None),
+                     "preprocess_s": runner.preprocess_time,
+                     "phases": runner.timing_summary().get("phases", {}),
+                     "ate_rmse_translation_m": ate_vs(runner, gt_t, gt_poses),
+                     "graph_variables": slam.num_variables(),
+                     "graph_factors": slam.num_factors(), "closures": slam.num_closures,
+                     "relocalizations": slam.relocalizations,
+                     "launches": {k: v for k, v in launches.items() if v}}
+        runners[name] = runner
+        log(f"MULTI loop, {name}: {json.dumps(out[name])}")
+        assert n == MULTI_STEPS + 1 and traj.shape == (n, 3) and np.isfinite(traj).all()
+    dual, single = out["dual"], out["single"]
+    np.testing.assert_allclose(np.asarray(runners["dual"].slam.cfg.cue_extrinsics),
+                               np.asarray(MULTI_EXTRINSICS), atol=1e-6)
+    assert dual["tracker"] == "MultiCueTracker"
+    assert dual["launches"].get("multicue_align_kernel", 0) == dual["tracked_frames"] > 0, dual
+    verdict = (dual["ate_rmse_translation_m"] <= single["ate_rmse_translation_m"]
+               and dual["graph_factors"] > dual["graph_variables"] - 1
+               and dual["ate_rmse_translation_m"] <= MULTI_ATE_LIMIT)
+    out["verdict"] = "PASS" if verdict else "FAIL"
+    log(f"MULTI loop verdict {out['verdict']}: dual ATE {dual['ate_rmse_translation_m']:.4f} m "
+        f"(limit {MULTI_ATE_LIMIT} m), single-cue ATE {single['ate_rmse_translation_m']:.4f} m, "
+        f"dual graph {dual['graph_variables']} variables / {dual['graph_factors']} factors")
+    assert verdict, out
+    return out
+
+
+def check_probes(msgs, device) -> list[dict]:
+    """The two probe kernels against their plain versions at full width.
+    The shift z-buffer: the cells of each of the first 20 front scans
+    (721-beam canvas, B = 768) moved by a small pose, winners and validity
+    EQUAL, depths within 1e-6, and as the TPU test holds it, 99.5 % of the
+    beams agree with the projector's z-buffer. The gather: both forms at K =
+    8 and 32 (``bench/exp_gather.run``) EQUAL to the plain version."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather
+    from srrg2_laser_slam_2d_tpu_torch.ops import beam_zbuffer_kernel as bzk
+    from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+    from srrg2_laser_slam_2d_tpu_torch.utils import presets
+
+    proj = presets.reference_projection(MULTI_BEAMS)
+    packs, _ = dual_packs(msgs, 20, device)
+    pose = torch.tensor([0.03, -0.02, 0.05], device=device)
+    geos, agree = [], []
+    for pack in packs:
+        front = pack.map(lambda x: x[0])
+        canvas = projector_op.project_local(proj, front)
+        idx = canvas.idx.clamp(min=0)
+        moved = cloud_op.transform(
+            cloud_op.Cloud(front.xy[idx], front.normal[idx], canvas.valid), pose)
+        geos.append(bzk.pack_cells(moved, proj))
+        ref = projector_op.project_local(proj, moved)
+        agree.append((moved, ref))
+    bzk.launches = 0
+    outs = [bzk.beam_zbuffer_probe(proj, g) for g in geos]
+    torch.cuda.synchronize()
+    z_launches = bzk.launches
+    err, fraction = 0.0, 1.0
+    for g, o, (moved, ref) in zip(geos, outs, agree):
+        p = bzk.beam_zbuffer_probe_plain(proj, g)
+        assert torch.equal(o[4], p[4]) and torch.equal(o[3], p[3]), "z-buffer winners differ"
+        err = max(err, float((o[:3] - p[:3]).abs().max()))
+        s_ok = o[4, :MULTI_BEAMS] > 0
+        fraction = min(fraction, float((s_ok == ref.valid).float().mean()))
+    log(f"shift z-buffer probe: {len(geos)} scans, winners equal, fields within {err:.3g}, "
+        f"agreement with the projector z-buffer >= {fraction:.4f}")
+    assert err <= 1e-6 and fraction >= 0.995
+    B = bzk.cols_padded(proj)
+    g0 = geos[0]
+    ms = device_time_ms(lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
+    paced_ms = cuda_time_ms(lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
+    plain_ms = cuda_time_ms(lambda: bzk.beam_zbuffer_probe_plain(proj, g0), 20)
+    # bytes: the 6 rows of geoT the kernel reads (rows 6-7 are never read)
+    # and the 8 rows it writes
+    b_ms, b_by = bound((6 + 8) * B * 4, B * bzk.FLOPS_PER_LANE)
+    entries = [{"name": "beam_zbuffer_kernel", "route": "cuda",
+                "source": "srrg2_laser_slam_2d_tpu_torch/csrc/beam_zbuffer_kernel.cu",
+                "replaces": "tests/test_fast_tracker.py:81", "launches": z_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "host_paced_ms": paced_ms,
+                "shape": f"B={B} cols={MULTI_BEAMS} max_shift={bzk.MAX_SHIFT}"}]
+    log(f"beam_zbuffer_kernel B={B}: {ms:.4f} ms ({paced_ms:.4f} at the host's pace), "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    exp_gather.launches = 0
+    runs = [exp_gather.run(form, k, 10, device) for k in (8, 32) for form in exp_gather.FORMS]
+    g_launches = exp_gather.launches
+    times = {}
+    for k in (8, 32):
+        canvas, idx = exp_gather.make_inputs(k, device)
+        ref = exp_gather.gather_probe_plain(canvas, idx, 10)
+        for form in exp_gather.FORMS:
+            out = exp_gather.gather_probe(canvas, idx, 10, form)
+            assert torch.equal(out, ref), (k, form)
+            times[(form, k)] = device_time_ms(
+                lambda: exp_gather.gather_probe(canvas, idx, 10, form), 100)
+        times[("plain", k)] = cuda_time_ms(lambda: exp_gather.gather_probe_plain(canvas, idx, 10),
+                                           20)
+    assert all(r["err"] <= 1e-5 for r in runs), runs
+    b_ms, b_by = bound(exp_gather.bytes_moved(32), exp_gather.flops(32, 10))
+    log("gather probe (device ms): " + ", ".join(f"{f} K={k} {t:.4f}"
+                                                 for (f, k), t in times.items()))
+    entries.append({"name": "gather_probe_kernel", "route": "cuda",
+                    "source": "srrg2_laser_slam_2d_tpu_torch/csrc/gather_probe_kernel.cu",
+                    "replaces": "bench/exp_gather.py:61", "launches": g_launches,
+                    "max_abs_err": 0.0, "ms": times[("direct", 32)],
+                    "plain_ms": times[("plain", 32)], "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None, "roll_ms": times[("roll", 32)],
+                    "k8_ms": {f: times[(f, 8)] for f in (*exp_gather.FORMS, "plain")},
+                    "shape": f"K=32 B={exp_gather.B} S={exp_gather.S} iters=10 (form direct)",
+                    "err_vs_numpy": max(r["err"] for r in runs)})
+    return entries
+
+
+def multi_path(device) -> dict:
+    """Every phase of the MULTI slice: kernel 6 and the probes against their
+    plain versions, the dual-cue benchmark, the MULTI loop."""
+    msgs, gt = dual_drive(device)
+    kernel = check_multicue_kernel(msgs, device)
+    probes = check_probes(msgs, device)
+    bench = multicue_bench_run(device)
+    loop = multi_loop_run(msgs, gt, device)
+    kernel["launches"] = loop["dual"]["launches"]["multicue_align_kernel"]
+    return {"kernels": [kernel, *probes], "multicue_bench": bench, "multi_loop": loop}
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
-    ap.add_argument("--only", choices=["message-kernels", "message-path"], default=None,
+    ap.add_argument("--only", choices=["message-kernels", "message-path", "multi"], default=None,
                     help="while developing: run the build and this part alone; "
                          "prints no result lines")
     args = ap.parse_args()
@@ -1031,6 +1361,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if args.only == "multi":
+        multi_path(device)
+        return 0
     mgr = config_mod.ConfigManager.read("configurations/corridor.json")
     slam_cfg, pcfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
     msgs = corridor_e2e.load_messages()
@@ -1053,6 +1386,7 @@ def main() -> int:
     one_map = routes_in_one_map(slam_cfg, pcfg, msgs, device)
     routes = message_routes_run(slam_cfg, pcfg, msgs, device)
     route_d = route_d_run(msgs)
+    multi = multi_path(device)
     # each kernel's launches on ITS main path, counted from 0 over that path
     by_route = {r["route"]: r["launches"] for r in routes}
     launches = {**main_run["launches"], **throughput["launches"],
@@ -1063,6 +1397,9 @@ def main() -> int:
     assert route_d["launches"]["frame_kernel"] > 0
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # kernel 6: the MULTI loop; the probes: their own probe runs
+    kernels += multi["kernels"]
+    for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its main path"
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1071,6 +1408,7 @@ def main() -> int:
                    "corridor_lean": lean_run, "throughput": throughput,
                    "per_message": {"route_d": route_d, "routes": routes,
                                    "one_local_map": one_map},
+                   "multicue_bench": multi["multicue_bench"], "multi_loop": multi["multi_loop"],
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

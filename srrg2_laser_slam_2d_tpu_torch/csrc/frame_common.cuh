@@ -254,34 +254,34 @@ __device__ __forceinline__ void match_terms(const Fields& fl, const Gathered& g,
   t[12] = inl;
 }
 
-// One GN update from the 13 sums: odometry prior, Cramer solve (guard
-// 1e-20), inlier guard, pre-multiplied compose (unwrapped).
-__device__ __forceinline__ void gn_update(const float* s, const float* T0, float* T,
-                                          const FrameParams& p) {
-  float h00 = s[0], h01 = s[1], h02 = s[2], h11 = s[3], h12 = s[4], h22 = s[5];
-  float b0 = s[6], b1 = s[7], b2 = s[8];
-  if (p.use_prior) {
-    const float w = p.odom_weight;
-    float ca = cosf(-T0[2]), sa = sinf(-T0[2]);
-    float atx = -(cosf(T0[2]) * T0[0] + sinf(T0[2]) * T0[1]);
-    float aty = -(-sinf(T0[2]) * T0[0] + cosf(T0[2]) * T0[1]);
-    float ex = atx + ca * T[0] - sa * T[1];
-    float ey = aty + sa * T[0] + ca * T[1];
-    float et = T[2] - T0[2];
-    float jx2 = ca * -T[1] - sa * T[0];
-    float jy2 = sa * -T[1] + ca * T[0];
-    h00 = h00 + w * (ca * ca + sa * sa);
-    h02 = h02 + w * (ca * jx2 + sa * jy2);
-    h11 = h11 + w * (ca * ca + sa * sa);
-    h12 = h12 + w * (-sa * jx2 + ca * jy2);
-    h22 = h22 + w * (jx2 * jx2 + jy2 * jy2 + 1.0f);
-    b0 = b0 + w * (ca * ex + sa * ey);
-    b1 = b1 + w * (-sa * ex + ca * ey);
-    b2 = b2 + w * (jx2 * ex + jy2 * ey + et);
-  }
-  float a00 = h00, a01 = h01, a02 = h02, a11 = h11, a12 = h12, a22 = h22;
+// The odometry prior (bk.add_odom_prior) at prior P and estimate T, weight
+// w, added to the normal equations h = [h00 h01 h02 h11 h12 h22 b0 b1 b2].
+__device__ __forceinline__ void add_odom_prior(float* h, const float* P, const float* T,
+                                               float w) {
+  float ca = cosf(-P[2]), sa = sinf(-P[2]);
+  float atx = -(cosf(P[2]) * P[0] + sinf(P[2]) * P[1]);
+  float aty = -(-sinf(P[2]) * P[0] + cosf(P[2]) * P[1]);
+  float ex = atx + ca * T[0] - sa * T[1];
+  float ey = aty + sa * T[0] + ca * T[1];
+  float et = T[2] - P[2];
+  float jx2 = ca * -T[1] - sa * T[0];
+  float jy2 = sa * -T[1] + ca * T[0];
+  h[0] = h[0] + w * (ca * ca + sa * sa);
+  h[2] = h[2] + w * (ca * jx2 + sa * jy2);
+  h[3] = h[3] + w * (ca * ca + sa * sa);
+  h[4] = h[4] + w * (-sa * jx2 + ca * jy2);
+  h[5] = h[5] + w * (jx2 * jx2 + jy2 * jy2 + 1.0f);
+  h[6] = h[6] + w * (ca * ex + sa * ey);
+  h[7] = h[7] + w * (-sa * ex + ca * ey);
+  h[8] = h[8] + w * (jx2 * ex + jy2 * ey + et);
+}
+
+// Cramer solve of H dx = -b (|det| <= 1e-20 gives 0) from the normal
+// equations h as above, then T <- dx * T (unwrapped) where `guard` holds.
+__device__ __forceinline__ void cramer_step(const float* h, bool guard, float* T) {
+  float a00 = h[0], a01 = h[1], a02 = h[2], a11 = h[3], a12 = h[4], a22 = h[5];
   float a10 = a01, a20 = a02, a21 = a12;
-  float r0 = -b0, r1 = -b1, r2 = -b2;
+  float r0 = -h[6], r1 = -h[7], r2 = -h[8];
   float det = a00 * (a11 * a22 - a12 * a21) - a01 * (a10 * a22 - a12 * a20) +
               a02 * (a10 * a21 - a11 * a20);
   float inv_det = (fabsf(det) > F32(1e-20)) ? 1.0f / det : 0.0f;
@@ -291,11 +291,19 @@ __device__ __forceinline__ void gn_update(const float* s, const float* T0, float
               (a02 * a10 - a00 * a12) * r2) * inv_det;
   float x2 = ((a10 * a21 - a11 * a20) * r0 + (a01 * a20 - a00 * a21) * r1 +
               (a00 * a11 - a01 * a10) * r2) * inv_det;
-  bool guard = s[9] >= p.min_inliers;
   float dx[3] = {guard ? x0 : 0.0f, guard ? x1 : 0.0f, guard ? x2 : 0.0f};
   float Tn[3];
   compose_s(dx, T, Tn);
   T[0] = Tn[0]; T[1] = Tn[1]; T[2] = Tn[2];
+}
+
+// One GN update from the 13 sums: odometry prior, Cramer solve, inlier
+// guard, pre-multiplied compose (unwrapped).
+__device__ __forceinline__ void gn_update(const float* s, const float* T0, float* T,
+                                          const FrameParams& p) {
+  float h[9] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
+  if (p.use_prior) add_odom_prior(h, T0, T, p.odom_weight);
+  cramer_step(h, s[9] >= p.min_inliers, T);
 }
 
 // The lean beam-window merge of one beam, shared by both kernels: the

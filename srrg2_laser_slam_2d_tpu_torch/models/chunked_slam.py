@@ -45,6 +45,8 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
 
     def __init__(self, cfg: GraphSLAMConfig = GraphSLAMConfig(),
                  sensor_in_robot=None, chunk: int = 256, device=None):
+        if cfg.cue_extrinsics is not None:
+            raise ValueError("chunked loop is single-cue; use GraphSLAM2D")
         if cfg.enable_loop_closure and cfg.detector.backend != "fused_nn":
             raise NotImplementedError(
                 f"loop detector backend {cfg.detector.backend!r} is not ported; "

@@ -1,13 +1,17 @@
 """Message-driven SLAM runner over the per-message loop. Counterpart of
-``srrg2_laser_slam_2d_tpu/models/runner.py`` (the ``putMessage`` surface of
+``srrg2_laser_slam_2d_tpu/models/runner.py``: the ``putMessage`` surface of
 MultiGraphSLAM2D plus the odometry raw-data preprocessor and the sensor
-extrinsic looked up in the TF tree), single cue. Multi-cue input
-(``scan_topics``) and resuming from a checkpoint (``resume_checkpoint``)
-are not ported and raise.
+extrinsic looked up in the TF tree. One laser topic (``scan_topic``) feeds
+the single-cue loop; several (``scan_topics``, the MULTI assembly) feed the
+multi-cue tracker, with each cue's extrinsic looked up in the TF tree on
+the first frame (``sensor_frames``, ``base_frame``) unless the
+configuration already holds ``cue_extrinsics``. Resuming from a checkpoint
+(``resume_checkpoint``) is not ported and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 
@@ -16,6 +20,7 @@ import numpy as np
 from .._device import resolve_device
 from ..io.messages import LaserMessage, OdometryMessage, extract_message
 from ..io.sources import Platform
+from ..utils import cloud as cloud_op
 from .preprocessor import LaserModel, PreprocessorConfig, ScanPreprocessor
 from .slam import GraphSLAM2D, GraphSLAMConfig
 
@@ -42,6 +47,7 @@ class SlamRunner:
     preprocessor_config: PreprocessorConfig = field(default_factory=PreprocessorConfig)
     scan_topic: str | None = None
     scan_topics: list | None = None
+    sensor_frames: list | None = None
     odom_topic: str = "/odom"
     sensor_frame: str | None = None
     base_frame: str | None = None
@@ -51,8 +57,6 @@ class SlamRunner:
     device: object = None
 
     def __post_init__(self):
-        if self.scan_topics:
-            raise NotImplementedError("multi-cue input (scan_topics) is not ported")
         if self.resume_checkpoint:
             raise NotImplementedError("resuming from a checkpoint is not ported")
         self.device = resolve_device(self.device)
@@ -61,10 +65,19 @@ class SlamRunner:
         self.odom_pre = OdomPreprocessor(self.odom_topic)
         self.slam: GraphSLAM2D | None = None
         self.trajectory: list = []   # (timestamp, pose, seconds)
-        self.preprocess_time = 0.0   # seconds spent making clouds (not synchronised)
+        self.preprocess_time = 0.0   # seconds spent making clouds, all cues (not synchronised)
 
     def _ensure_slam(self) -> GraphSLAM2D:
         if self.slam is None:
+            if self.scan_topics and self.sensor_frames and self.base_frame:
+                extrs = []
+                for frame in self.sensor_frames:
+                    tf = self.platform.get_transform(frame, self.base_frame)
+                    if tf is None:
+                        raise RuntimeError(f"no TF {frame} -> {self.base_frame} yet")
+                    extrs.append(tuple(float(v) for v in tf))
+                self.slam_config = dataclasses.replace(self.slam_config,
+                                                       cue_extrinsics=tuple(extrs))
             extr = self.sensor_in_robot
             if extr is None and self.sensor_frame and self.base_frame:
                 extr = self.platform.get_transform(self.sensor_frame, self.base_frame)
@@ -72,12 +85,7 @@ class SlamRunner:
                                     device=self.device)
         return self.slam
 
-    def put_message(self, msg) -> bool:
-        """Feed one message (or pack); True if a frame was processed."""
-        self.platform.add(msg)
-        laser = extract_message(msg, LaserMessage, self.scan_topic)
-        if laser is None:
-            return False
+    def _preprocess(self, laser: LaserMessage):
         self.preprocessor.set_model(LaserModel(
             num_beams=len(laser.ranges), angle_min=float(laser.angle_min),
             angle_max=float(laser.angle_max), range_min=float(laser.range_min),
@@ -85,6 +93,24 @@ class SlamRunner:
         t_pre = time.perf_counter()
         cloud = self.preprocessor.compute(np.asarray(laser.ranges, np.float32))
         self.preprocess_time += time.perf_counter() - t_pre
+        return cloud
+
+    def put_message(self, msg) -> bool:
+        """Feed one message (or pack); True if a frame was processed. With
+        ``scan_topics`` a pack must hold one laser message per topic (else it
+        is skipped); their clouds are stacked [C, N, ...]."""
+        self.platform.add(msg)
+        if self.scan_topics:
+            lasers = [extract_message(msg, LaserMessage, t) for t in self.scan_topics]
+            if any(m is None for m in lasers):
+                return False
+            cloud = cloud_op.stack([self._preprocess(m) for m in lasers])
+            laser = lasers[0]
+        else:
+            laser = extract_message(msg, LaserMessage, self.scan_topic)
+            if laser is None:
+                return False
+            cloud = self._preprocess(laser)
         if self.skip_frames > 0:
             self.skip_frames -= 1
             return False

@@ -89,14 +89,17 @@ class GraphSLAM2D:
 
     def __init__(self, cfg: GraphSLAMConfig = GraphSLAMConfig(),
                  sensor_in_robot=None, device=None):
-        if cfg.cue_extrinsics is not None:
-            raise NotImplementedError("multi-cue tracking is not ported")
         if cfg.global_solver_kind != "dense":
             raise NotImplementedError(
                 f"global solver {cfg.global_solver_kind!r} is not ported; use 'dense'")
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.use_fast_tracker:
+        if cfg.cue_extrinsics is not None:
+            # the MULTI assembly: ``process`` takes cue-stacked measurements
+            # [C, N, ...]; only the tracker sees them
+            self.tracker = tracker_mod.MultiCueTracker(cfg.tracker, cfg.cue_extrinsics,
+                                                       device=self.device)
+        elif cfg.use_fast_tracker:
             self.tracker = fast_mod.FastTracker(frame_spec(cfg), sensor_in_robot,
                                                 device=self.device)
         else:
@@ -196,7 +199,8 @@ class GraphSLAM2D:
 
     # ---- main entry ----------------------------------------------------------
     def process(self, measurement: Cloud, odom=None) -> None:
-        """One message pack: a laser measurement (sensor frame) and the
+        """One message pack: a laser measurement (sensor frame; with
+        ``cue_extrinsics`` one per cue, stacked [C, N, ...]) and the
         odometry pose, if any."""
         t0 = time.perf_counter()
         if self.current_map < 0:

@@ -15,12 +15,18 @@ clip and merge (all flags off), the banded aligner kernel
 the scene canvas kernel (``use_fused_aligner`` + ``use_fused_scene_ops``),
 each optionally with the merge canvas reused as the next clip
 (``reuse_clip_canvas``) or the beam-sized lean merge (``lean_scene_ops``).
-``MultiCueTracker`` is not ported.
+
+``MultiCueTracker`` tracks a robot with several rangefinders (the MULTI
+assembly): each cue clips its own view of the scene, the clips are aligned
+together against all cues' measurements (``icp.align_multi``, or the
+multi-cue aligner kernel with ``use_fused_aligner``; the other route flags
+do not apply) and each cue merges back through its own extrinsic.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import NamedTuple
@@ -129,6 +135,12 @@ def _align_fused(cfg: TrackerConfig, measurement: Cloud, clipped: Cloud,
                     iterations=a.max_iterations, point_distance=a.point_distance,
                     normal_cos=a.normal_cos, chi_threshold=a.chi_threshold,
                     min_inliers=a.min_num_inliers, odom_weight=a.odom_weight)
+    return _fused_result(fres, a.max_iterations)
+
+
+def _fused_result(fres, iterations: int) -> icp.AlignResult:
+    """An aligner kernel's result as ``icp.AlignResult``: the inlier chi of
+    the final pass and of every iteration record become means."""
     it_stats = fres.iter_stats.clone()
     it_stats[:, 3] = it_stats[:, 3] / torch.clamp(it_stats[:, 2], min=1.0)
     return icp.AlignResult(
@@ -136,7 +148,7 @@ def _align_fused(cfg: TrackerConfig, measurement: Cloud, clipped: Cloud,
         num_correspondences=fres.num_corr.to(torch.int64),
         num_inliers=fres.num_inliers.to(torch.int64),
         chi_inliers=fres.chi_inl_sum / torch.clamp(fres.num_inliers, min=1.0),
-        iterations=torch.tensor(a.max_iterations, device=T0.device), stats=it_stats)
+        iterations=torch.tensor(iterations, device=fres.estimate.device), stats=it_stats)
 
 
 def track_step(cfg: TrackerConfig, state: TrackerState, measurement: Cloud,
@@ -218,6 +230,150 @@ def track_step(cfg: TrackerConfig, state: TrackerState, measurement: Cloud,
         scene_count=scene_count, scene_full=scene_count >= scene.capacity,
         dropped_appends=dropped)
     return new_state, stats
+
+
+def multi_step_inputs(cfg: TrackerConfig, state: TrackerState, extrinsics: torch.Tensor,
+                      odom: torch.Tensor, odom_valid: torch.Tensor) -> tuple[Cloud, torch.Tensor]:
+    """The moving cloud of one multi-cue step (each cue's clip of the scene,
+    concatenated in the robot frame) and T0, the initial guess and the
+    odometry prior: the inverse odometry step, or the identity without
+    odometry."""
+    use_prior = state.has_odom & odom_valid
+    D = torch.where(use_prior, geometry.relative(state.last_odom, odom),
+                    torch.zeros_like(state.last_odom))
+    clips = [clip_op.clip_projective(cfg.projection, state.scene, state.robot_in_local_map,
+                                     extrinsics[c], cfg.clip_voxelize_resolution)
+             for c in range(extrinsics.shape[0])]
+    return functools.reduce(cloud_op.concat, clips), geometry.inverse(D)
+
+
+def fused_multi_arguments(cfg: TrackerConfig, measurements: Cloud, extrinsics: torch.Tensor,
+                          moving: Cloud, T0: torch.Tensor) -> tuple[tuple, dict]:
+    """The positional and keyword arguments of
+    ``ops.multicue_align_kernel.fused_projective_align_multi`` (and of its
+    plain version) for one multi-cue step."""
+    a = cfg.aligner
+    args = (cfg.projection, measurements.xy, measurements.normal, measurements.valid,
+            extrinsics, moving.xy, moving.normal, moving.valid, T0)
+    kw = dict(odom_prior=T0, iterations=a.max_iterations, point_distance=a.point_distance,
+              normal_cos=a.normal_cos, chi_threshold=a.chi_threshold,
+              min_inliers=a.min_num_inliers, min_corr=a.min_num_correspondences,
+              odom_weight=a.odom_weight, damping=a.damping)
+    return args, kw
+
+
+def track_step_multi(cfg: TrackerConfig, state: TrackerState, measurements: Cloud,
+                     extrinsics: torch.Tensor, odom: torch.Tensor,
+                     odom_valid: torch.Tensor) -> tuple[TrackerState, TrackStats]:
+    """One multi-cue tracking step. ``measurements`` [C, N, ...] holds the
+    cues' clouds in their sensor frames, ``extrinsics`` [C, 3] their
+    sensor-in-robot poses; the aligner estimate maps prev-robot ->
+    curr-robot, so X_new = X_old estimate^-1."""
+    n_cues = extrinsics.shape[0]
+    moving, T0 = multi_step_inputs(cfg, state, extrinsics, odom, odom_valid)
+    if cfg.use_fused_aligner:
+        from ..ops.multicue_align_kernel import fused_projective_align_multi
+
+        args, kw = fused_multi_arguments(cfg, measurements, extrinsics, moving, T0)
+        res = _fused_result(fused_projective_align_multi(*args, **kw), cfg.aligner.max_iterations)
+    else:
+        res = icp.align_multi(cfg.aligner, cfg.projection, measurements, extrinsics, moving,
+                              T0, odom_prior=T0)
+
+    X_new = geometry.compose(state.robot_in_local_map, geometry.inverse(res.estimate))
+    scene = state.scene
+    for c in range(n_cues):
+        scene = merge_op.merge_projective(
+            cfg.projection, scene, measurements.map(lambda x: x[c]),
+            measurement_in_scene=geometry.compose(X_new, extrinsics[c]),
+            merge_threshold=cfg.merge_threshold)
+    new_state = state._replace(
+        scene=scene, robot_in_local_map=X_new,
+        last_odom=torch.where(odom_valid, odom, state.last_odom),
+        has_odom=state.has_odom | odom_valid)
+    scene_count = scene.valid.sum()
+    ok = res.num_inliers >= cfg.aligner.min_num_inliers
+    stats = TrackStats(
+        estimate=res.estimate, chi=res.chi, num_correspondences=res.num_correspondences,
+        num_inliers=res.num_inliers, chi_inliers=res.chi_inliers,
+        iterations=res.iterations, iter_stats=res.stats,
+        status=torch.where(ok, int(Status.SUCCESS), int(Status.ERROR)),
+        scene_count=scene_count, scene_full=scene_count >= scene.capacity,
+        dropped_appends=torch.tensor(-1, device=X_new.device))
+    return new_state, stats
+
+
+def populate_multi(cfg: TrackerConfig, state: TrackerState, measurements: Cloud,
+                   extrinsics: torch.Tensor) -> TrackerState:
+    """Seed the scene from all cues at once, each moved into the local-map
+    frame through its extrinsic."""
+    scene = None
+    for c in range(extrinsics.shape[0]):
+        meas_lm = cloud_op.transform(measurements.map(lambda x: x[c]),
+                                     geometry.compose(state.robot_in_local_map, extrinsics[c]))
+        scene = meas_lm if scene is None else cloud_op.concat(scene, meas_lm)
+    return state._replace(scene=cloud_op.repad(scene, cfg.scene_capacity))
+
+
+class MultiCueTracker:
+    """Stateful multi-rangefinder tracker with the surface the SLAM layer
+    uses (``compute`` takes cue-stacked measurements [C, N, ...]). Runs on
+    the CUDA card unless ``device`` says otherwise; without a card it raises
+    (``device="cpu"`` runs the plain PyTorch versions). The scene keeps its
+    capacity: there is no regrowth on this path."""
+
+    def __init__(self, cfg: TrackerConfig, extrinsics, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.extrinsics = torch.as_tensor(np.asarray(extrinsics, np.float32),
+                                          device=self.device)
+        self.state = init_state(cfg, device=self.device)
+        self._seeded = False
+        self.steps = 0   # tracked frames
+
+    @property
+    def robot_in_local_map(self) -> torch.Tensor:
+        return self.state.robot_in_local_map
+
+    def _pose(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def set_scene(self, scene: Cloud, robot_in_local_map=None) -> None:
+        """Continue tracking on an existing local-map scene (not written in
+        place)."""
+        self.state = self.state._replace(scene=scene.to(self.device))
+        if robot_in_local_map is not None:
+            self.state = self.state._replace(
+                robot_in_local_map=self._pose(robot_in_local_map).clone())
+        self._seeded = True
+
+    def capture_scene(self) -> Cloud:
+        return self.state.scene
+
+    def reseed(self, measurements: Cloud, odom=None) -> None:
+        """Start a new local map at the current measurements."""
+        self.state = self.state._replace(robot_in_local_map=torch.zeros(3, device=self.device))
+        self._seeded = False
+        self.compute(measurements, odom)
+
+    def compute(self, measurements: Cloud, odom=None) -> TrackStats | None:
+        measurements = measurements.to(self.device)
+        if not self._seeded:
+            self.state = populate_multi(self.cfg, self.state, measurements, self.extrinsics)
+            self._seeded = True
+            if odom is not None:
+                self.state = self.state._replace(
+                    last_odom=self._pose(odom),
+                    has_odom=torch.ones((), dtype=torch.bool, device=self.device))
+            return None
+        odom_t = self._pose(odom) if odom is not None else torch.zeros(3, device=self.device)
+        odom_valid = torch.tensor(odom is not None, device=self.device)
+        self.state, stats = track_step_multi(self.cfg, self.state, measurements,
+                                             self.extrinsics, odom_t, odom_valid)
+        self.steps += 1
+        return stats
 
 
 class LaserTracker:

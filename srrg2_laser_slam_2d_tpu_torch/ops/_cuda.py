@@ -21,7 +21,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 KERNELS = ("frame_kernel", "nn_icp_kernel", "stream_kernel", "projector_kernel",
-           "scene_kernel", "banded_align_kernel", "projective_align_kernel")
+           "scene_kernel", "banded_align_kernel", "projective_align_kernel",
+           "multicue_align_kernel", "beam_zbuffer_kernel", "gather_probe_kernel")
 
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # operation as the plain PyTorch versions do (one kernel per operation)
@@ -30,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # (cloud xy, normal, valid, rows) twice, t0, prior, three outputs, params, stream
 _ALIGN_ARGS = ([_VOID] * 3 + [_INT]) * 2 + [_VOID] * 7
 _SIGNATURES = {
@@ -40,6 +42,15 @@ _SIGNATURES = {
     "scene_kernel": {"scene_canvas": [_VOID] * 8},
     "banded_align_kernel": {"banded_align": _ALIGN_ARGS},
     "projective_align_kernel": {"projective_align": _ALIGN_ARGS},
+    # fixed (xy, normal, valid, cues, rows), moving (xy, normal, valid, rows), t0,
+    # prior, extrinsics, three outputs, params, damping, min_corr, stream
+    "multicue_align_kernel": {"multicue_align": [_VOID] * 3 + [_INT] * 2 + [_VOID] * 3 + [_INT]
+                              + [_VOID] * 7 + [_FLOAT] * 2 + [_VOID]},
+    # geoT, out, B, cols, f, c, range_min, range_max, max_shift, stream
+    "beam_zbuffer_kernel": {"beam_zbuffer": [_VOID] * 2 + [_INT] * 2 + [_FLOAT] * 4
+                            + [_INT, _VOID]},
+    # canvas, idx, out, K, B, shift, iterations, form, stream
+    "gather_probe_kernel": {"gather_probe": [_VOID] * 3 + [_INT] * 5 + [_VOID]},
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 

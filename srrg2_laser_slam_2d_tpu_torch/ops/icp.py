@@ -5,9 +5,10 @@ projective correspondence finder, the robustified plane-to-plane
 linearization, the odometry prior and the outer loop ``align``.
 
 Every function takes leading batch dimensions, so one call aligns a query
-scene against K candidate scenes (the JAX package maps ``align`` over them).
-``align_multi`` (several cues) and the ``nn_grid`` / ``bruteforce`` finders
-are not ported; selecting them raises.
+scene against K candidate scenes (the JAX package maps ``align`` over them)
+and ``align_multi`` matches all cues of a multi-rangefinder robot in one
+batched call. The ``nn_grid`` / ``bruteforce`` finders are not ported;
+selecting them raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import cloud as cloud_lib
 from ..utils import geometry
 from ..utils.cloud import Cloud
 from . import projector as projector_op
@@ -197,6 +199,46 @@ def _iterate(cfg: AlignerConfig, iteration, initial: torch.Tensor) -> AlignResul
                        num_correspondences=final[..., 1].to(torch.int64),
                        num_inliers=final[..., 2].to(torch.int64),
                        chi_inliers=final[..., 3], iterations=its, stats=stats)
+
+
+def align_multi(cfg: AlignerConfig, proj: PolarProjection, fixed_cues: Cloud,
+                extrinsics: torch.Tensor, moving: Cloud, initial: torch.Tensor,
+                odom_prior: torch.Tensor | None = None) -> AlignResult:
+    """Multi-cue alignment: MultiAligner2D with one laser slice per
+    rangefinder. ``fixed_cues`` [C, N, ...] holds each cue's measurement in
+    its own sensor frame, ``extrinsics`` [C, 3] the sensor-in-robot poses,
+    ``moving`` the shared clip in the previous robot frame; the estimate
+    maps prev-robot -> curr-robot. Cue c matches in its sensor frame (its
+    own canvas) at inverse(e_c) * estimate and linearizes in the robot frame
+    against its measurement moved by e_c; the normal systems are summed over
+    the cue axis, then the odometry prior and the damping enter once."""
+    n_cues = extrinsics.shape[0]
+    canvases = projector_op.project_local(proj, fixed_cues)
+    fixed_rob = cloud_lib.transform(fixed_cues, extrinsics)
+    inv_extr = geometry.inverse(extrinsics)
+    moving_c = moving.map(lambda x: x.expand((n_cues,) + x.shape))
+    eye = torch.eye(3, device=initial.device)
+
+    def iteration(estimate):
+        est_c = estimate.expand(n_cues, 3)
+        corr = find_projective(proj, canvases, fixed_cues, moving_c,
+                               geometry.compose(inv_extr, est_c),
+                               cfg.point_distance, cfg.normal_cos)
+        H, b, chi, n_inl, chi_inl_sum = p2p_linearize(est_c, fixed_rob, moving_c, corr,
+                                                      cfg.chi_threshold)
+        H, b, chi = H.sum(0), b.sum(0), chi.sum(0)
+        n_corr, n_inl, chi_inl_sum = corr.valid.sum(), n_inl.sum(), chi_inl_sum.sum()
+        if odom_prior is not None and cfg.odom_weight > 0:
+            Ho, bo, chio = odom_prior_linearize(estimate, odom_prior, cfg.odom_weight)
+            H, b, chi = H + Ho, b + bo, chi + chio
+        H = H + cfg.damping * eye
+        ok = (n_corr >= max(cfg.min_num_correspondences, 1)) & (n_inl >= cfg.min_num_inliers)
+        dx = solve3(H + (1.0 - ok.to(torch.float32)) * eye * 1e6, -b)
+        dx = torch.where(ok, dx, torch.zeros_like(dx))
+        chi_inl_mean = chi_inl_sum / torch.clamp(n_inl.to(torch.float32), min=1.0)
+        return geometry.compose(dx, estimate), (chi, n_corr, n_inl, chi_inl_mean)
+
+    return _iterate(cfg, iteration, initial)
 
 
 def align(cfg: AlignerConfig, proj: PolarProjection, fixed: Cloud, moving: Cloud,

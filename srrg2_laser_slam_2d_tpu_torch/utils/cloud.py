@@ -110,6 +110,28 @@ def repad(cloud: Cloud, capacity: int) -> Cloud:
                  c.valid[..., :capacity])
 
 
+def concat(a: Cloud, b: Cloud, capacity: int | None = None) -> Cloud:
+    """The valid points of ``a`` then those of ``b``, compacted into
+    ``capacity`` rows (default: both capacities; overflow is dropped). One
+    cloud, no batch."""
+    a, b = compact(a), compact(b)
+    cap = a.capacity + b.capacity if capacity is None else capacity
+    na, nb = a.valid.sum(), b.valid.sum()
+    dev = a.xy.device
+    dest = torch.cat([torch.where(a.valid, torch.arange(a.capacity, device=dev), cap),
+                      torch.where(b.valid, na + torch.arange(b.capacity, device=dev), cap)])
+    dest = torch.clamp(dest, max=cap)
+    valid = torch.arange(cap, device=dev) < torch.clamp(na + nb, max=cap)
+    return Cloud(_scatter_rows(torch.cat([a.xy, b.xy]), dest, cap),
+                 _scatter_rows(torch.cat([a.normal, b.normal]), dest, cap), valid)
+
+
+def stack(clouds) -> Cloud:
+    """Clouds of one capacity stacked along a new leading axis (the
+    cue-stacked measurement [C, N, ...] of the multi-cue tracker)."""
+    return Cloud(*(torch.stack(fields) for fields in zip(*clouds)))
+
+
 def clip_ball(cloud: Cloud, center: torch.Tensor, max_range: float) -> Cloud:
     """Radial clip around ``center`` [2], as a mask update."""
     d2 = ((cloud.xy - center) ** 2).sum(dim=-1)

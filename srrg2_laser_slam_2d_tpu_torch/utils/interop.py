@@ -6,8 +6,10 @@ scene), ``TrackerState``, ``TrackStats``, ``AlignResult``,
 kernel's batched ``cacheB`` / ``poseB`` state, a measurement or odometry
 stack), with every leaf given as something ``numpy.asarray`` accepts, and
 returns the port's counterpart as tensors on one device. The structures are recognised by their field names,
-so this module needs nothing of the JAX package. Tests use it to start both
-implementations from the same state.
+so this module needs nothing of the JAX package. ``multicue_tracker_from_numpy``
+carries a whole ``MultiCueTracker`` over (its state, extrinsics and whether it
+is seeded). Tests use them to start both implementations from the same
+state.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from ..models.fast_tracker import FastState
-from ..models.tracker import TrackerState, TrackStats
+from ..models.tracker import MultiCueTracker, TrackerConfig, TrackerState, TrackStats
 from ..ops.icp import AlignResult
 from ..ops.projective_align_kernel import ProjAlignResult
 from ..solver.pgo import PoseGraph
@@ -65,3 +67,13 @@ def state_from_numpy(obj, device="cpu"):
                               else _tensor(getattr(obj, k), dt, device))
                           for k, dt in leaves.items()})
     raise TypeError(f"no port counterpart for a structure with fields {fields}")
+
+
+def multicue_tracker_from_numpy(tracker, cfg: TrackerConfig, device="cpu") -> MultiCueTracker:
+    """The port's ``MultiCueTracker`` under ``cfg`` in the state of another
+    one (the JAX package's): its ``state`` (scene, robot_in_local_map,
+    last_odom, has_odom, ...), ``extrinsics`` and seeded flag."""
+    out = MultiCueTracker(cfg, np.array(tracker.extrinsics, np.float32), device=device)
+    out.state = state_from_numpy(tracker.state, device)
+    out._seeded = bool(tracker._seeded)
+    return out

@@ -1,12 +1,12 @@
 """Shipped pipeline presets: the LASER_0 assembly (one laser and wheel
-odometry). Counterpart of the presets of
-``srrg2_laser_slam_2d_tpu/utils/presets.py``; the configuration classes
-register themselves in ``utils/config.py``. The MULTI assembly waits for
-the multi-cue tracker.
+odometry) and the MULTI assembly (two lasers and wheel odometry).
+Counterpart of the presets of ``srrg2_laser_slam_2d_tpu/utils/presets.py``;
+the configuration classes register themselves in ``utils/config.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -39,6 +39,12 @@ def laser0_preprocessor() -> PreprocessorConfig:
                               normal_point_distance=0.3, normal_min_points=5)
 
 
+def _on_card(device) -> bool:
+    """Whether a run on ``device`` (None: the default device) is on a CUDA
+    card."""
+    return torch.cuda.is_available() if device is None else torch.device(device).type == "cuda"
+
+
 def laser0_slam(num_beams: int = 721, scene_capacity: int = 8192,
                 use_fast_tracker: bool | None = None,
                 device=None) -> slam_mod.GraphSLAMConfig:
@@ -47,9 +53,7 @@ def laser0_slam(num_beams: int = 721, scene_capacity: int = 8192,
     frame kernel) and to OFF on the CPU, where the plain projective ICP
     tracker is the parity oracle."""
     if use_fast_tracker is None:
-        on_card = (torch.cuda.is_available() if device is None
-                   else torch.device(device).type == "cuda")
-        use_fast_tracker = on_card
+        use_fast_tracker = _on_card(device)
     return slam_mod.GraphSLAMConfig(
         use_fast_tracker=use_fast_tracker,
         local_map_distance=1.0,
@@ -68,3 +72,21 @@ def laser0_slam(num_beams: int = 721, scene_capacity: int = 8192,
         # that survived is down-weighted instead of bending the graph
         global_solver=pgo.PGOConfig(max_iterations=20, epsilon=1e-5, chi_threshold=1.0),
     )
+
+
+def multi_slam(num_beams: int = 721, scene_capacity: int = 8192,
+               cue_extrinsics=((0.0, 0.0, 0.0), (0.0, 0.0, math.pi)),
+               use_fused_aligner: bool | None = None,
+               device=None) -> slam_mod.GraphSLAMConfig:
+    """The MULTI assembly: LASER_0 with a second laser, i.e. the tracker
+    runs as ``MultiCueTracker`` over ``cue_extrinsics`` (the sensor-in-robot
+    poses of the lasers; default front at the base frame, rear turned by
+    pi). ``use_fused_aligner`` defaults to ON on a CUDA card (the multi-cue
+    aligner kernel) and to OFF on the CPU (``icp.align_multi``, the parity
+    oracle)."""
+    if use_fused_aligner is None:
+        use_fused_aligner = _on_card(device)
+    cfg = laser0_slam(num_beams, scene_capacity, use_fast_tracker=False)
+    return dataclasses.replace(
+        cfg, cue_extrinsics=tuple(tuple(float(v) for v in e) for e in cue_extrinsics),
+        tracker=dataclasses.replace(cfg.tracker, use_fused_aligner=use_fused_aligner))

@@ -13,7 +13,10 @@ the same order and differ only in the order of their block sums, so poses
 and payload points agree to 1e-4 over 16 frames and NN-ICP estimates to
 1e-4 (chip_smoke.py holds the full-width shapes to 1e-3). The projector and
 scene kernels do no sums: indices, rows and depths are EQUAL, fields agree
-to 1e-6; the aligner kernels' estimates agree to 1e-5, their counts to 1."""
+to 1e-6; the aligner kernels' estimates agree to 1e-5, their counts to 1
+(the multi-cue aligner's, which sums twice the rows, to 2). The probes: the
+shift z-buffer's winners and validity EQUAL and depths within 1e-6; the
+gather EQUAL (the same additions in the same order)."""
 
 import dataclasses
 
@@ -384,3 +387,107 @@ def test_laser_tracker_on_card_follows_the_plain_versions(card, room_scans, flag
     assert np.linalg.norm(on_cpu.robot_in_local_map.numpy()[:2]) > 0.5
     # a cell on a bin edge may merge on one side and append on the other
     assert abs(int(on_card.capture_scene().count()) - int(on_cpu.capture_scene().count())) <= 4
+
+
+MULTI_EXTR = np.array([[0.2, 0.0, 0.0], [-0.2, 0.0, np.pi]], np.float32)
+
+
+@pytest.fixture(scope="module")
+def dual_room_scans(card):
+    """Six dual-laser packs of the room drive (front and rear laser, 361
+    beams each) as cue-stacked clouds on the card, with the robot poses."""
+    T = 6
+    poses = np.stack([np.linspace(-2.0, -1.0, T), np.linspace(-1.0, -0.5, T),
+                      np.linspace(0.0, 0.15, T)], 1).astype(np.float32)
+    pre = ScanPreprocessor(PreprocessorConfig(voxelize_resolution=0.02, normal_window=8),
+                           device=card)
+    pre.set_model(LaserModel(361, -np.pi, np.pi, 0.0, 30.0))
+    cues = []
+    for e in MULTI_EXTR:
+        c, s = np.cos(poses[:, 2]), np.sin(poses[:, 2])
+        sensor = np.stack([poses[:, 0] + c * e[0] - s * e[1], poses[:, 1] + s * e[0] + c * e[1],
+                           poses[:, 2] + e[2]], 1)
+        cues.append(pre.compute(_room_ranges(sensor, 361)))
+    packs = [Cloud(*(torch.stack([f[k] for f in fields]) for fields in zip(*cues)))
+             for k in range(T)]
+    return packs, poses
+
+
+def test_multicue_align_kernel_matches_plain_on_card(card, dual_room_scans):
+    from srrg2_laser_slam_2d_tpu_torch.ops import multicue_align_kernel as mak
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+
+    packs, poses = dual_room_scans
+    cfg = _tracker_config()
+    extr = torch.from_numpy(MULTI_EXTR).to(card)
+    st = tr.populate_multi(cfg, tr.init_state(cfg, device=card), packs[0], extr)
+    clips = [clip_op.clip_projective(cfg.projection, st.scene, st.robot_in_local_map, extr[c])
+             for c in range(2)]
+    mov = cloud_op.concat(*clips)
+    t0 = torch.tensor([-0.2, -0.1, -0.03], device=card)
+    m = packs[1]
+    args = (cfg.projection, m.xy, m.normal, m.valid, extr, mov.xy, mov.normal, mov.valid, t0)
+    for kw in (dict(odom_weight=1.0), dict(odom_weight=0.0, damping=5.0),
+               dict(odom_weight=1.0, min_corr=100000)):
+        kw = dict(kw, odom_prior=t0, iterations=10, chi_threshold=0.05)
+        before = mak.launches
+        k = mak.fused_projective_align_multi(*args, **kw)
+        torch.cuda.synchronize()
+        assert mak.launches == before + 1
+        p = mak.fused_projective_align_multi_plain(*args, **kw)
+        np.testing.assert_allclose(k.estimate.cpu().numpy(), p.estimate.cpu().numpy(),
+                                   atol=1e-5)
+        assert float(p.num_corr) > 200
+        assert abs(float(k.num_corr) - float(p.num_corr)) <= 2
+        assert abs(float(k.num_inliers) - float(p.num_inliers)) <= 2
+        np.testing.assert_allclose(float(k.chi), float(p.chi), rtol=1e-3)
+        assert float((k.iter_stats[:, 1:3] - p.iter_stats[:, 1:3]).abs().max()) <= 2
+        if "min_corr" in kw:
+            np.testing.assert_array_equal(k.estimate.cpu().numpy(), t0.cpu().numpy())
+
+
+def test_multicue_tracker_on_card_follows_the_plain_version(card, dual_room_scans):
+    """``MultiCueTracker`` with the kernel over six packs: one launch per
+    tracked frame on the card, the plain version on the CPU; poses agree to
+    2e-4 (block sums in another order over twice the rows)."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import multicue_align_kernel as mak
+
+    packs, poses = dual_room_scans
+    cfg = _tracker_config(use_fused_aligner=True)
+    on_card = tr.MultiCueTracker(cfg, MULTI_EXTR, device=card)
+    on_cpu = tr.MultiCueTracker(cfg, MULTI_EXTR, device="cpu")
+    mak.launches = 0
+    for k, c in enumerate(packs):
+        on_card.compute(c, poses[k])
+        on_cpu.compute(c.to("cpu"), poses[k])
+    assert on_card.steps == len(packs) - 1 == mak.launches
+    np.testing.assert_allclose(on_card.robot_in_local_map.cpu().numpy(),
+                               on_cpu.robot_in_local_map.numpy(), atol=2e-4)
+    assert np.linalg.norm(on_cpu.robot_in_local_map.numpy()[:2]) > 0.5
+
+
+def test_probe_kernels_match_plain_on_card(card, room_scans):
+    from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather
+    from srrg2_laser_slam_2d_tpu_torch.ops import beam_zbuffer_kernel as bzk
+    from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
+
+    clouds, _ = room_scans
+    proj = projector_op.PolarProjection.make(cols=721, angle_min=-np.pi, angle_max=np.pi,
+                                             range_min=0.3, range_max=20.0)
+    canvas = projector_op.project_local(proj, clouds[0])
+    idx = canvas.idx.clamp(min=0)
+    cells = Cloud(clouds[0].xy[idx], clouds[0].normal[idx], canvas.valid)
+    geoT = bzk.pack_cells(cloud_op.transform(cells, torch.tensor([0.03, -0.02, 0.05],
+                                                                  device=card)), proj)
+    before = bzk.launches
+    k = bzk.beam_zbuffer_probe(proj, geoT)
+    torch.cuda.synchronize()
+    assert bzk.launches == before + 1
+    p = bzk.beam_zbuffer_probe_plain(proj, geoT)
+    assert torch.equal(k[4], p[4]) and torch.equal(k[3], p[3]) and int(k[4].sum()) > 200
+    assert float((k[:3] - p[:3]).abs().max()) <= 1e-6
+    for K in (8, 32):
+        cv, ix = exp_gather.make_inputs(K, card)
+        ref = exp_gather.gather_probe_plain(cv, ix, 10)
+        for form in exp_gather.FORMS:
+            assert torch.equal(exp_gather.gather_probe(cv, ix, 10, form), ref), (K, form)

@@ -160,3 +160,74 @@ def test_per_message_wrappers_take_the_plain_version_only_for_cpu_tensors():
         with pytest.raises(ValueError):
             fn(proj, m.xy, m.normal, m.valid, beams.xy.to("meta"), beams.normal.to("meta"),
                beams.valid.to("meta"), torch.zeros(3, device="meta"))
+
+
+MULTICUE_MODULES = (
+    "ops/multicue_align_kernel.py", "ops/beam_zbuffer_kernel.py", "bench/exp_gather.py",
+    "bench/multicue_bench.py", "apps/synthetic_scene_generator.py", "models/tracker.py",
+    "models/runner.py", "ops/icp.py", "utils/cloud.py", "utils/interop.py",
+)
+
+
+@pytest.mark.parametrize("module", MULTICUE_MODULES)
+def test_multicue_modules_import_neither_jax_nor_the_jax_package(module):
+    path = ROOT / "srrg2_laser_slam_2d_tpu_torch" / module
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, (module, bad)
+
+
+def test_multicue_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather, multicue_bench
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+    from srrg2_laser_slam_2d_tpu_torch.models.tracker import MultiCueTracker, TrackerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: SlamRunner(scan_topics=["/scan_0", "/scan_1"], **kw),
+                 lambda **kw: MultiCueTracker(TrackerConfig(), [(0, 0, 0), (0, 0, 3.14)], **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multicue_bench.build_inputs(frames=2, num_beams=64)
+    assert multicue_bench.build_inputs(frames=2, num_beams=64, device="cpu")["meas"].xy.shape \
+        == (2, 2, 64, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        exp_gather.run("direct", 2)
+
+
+def test_multicue_and_probe_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """Kernel 6 and the two probes: CPU tensors go to the plain version and
+    count no launch; a tensor on any other device must launch the kernel (a
+    meta tensor, which no kernel takes, is refused)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather
+    from srrg2_laser_slam_2d_tpu_torch.ops import beam_zbuffer_kernel as bzk
+    from srrg2_laser_slam_2d_tpu_torch.ops import multicue_align_kernel as mak
+    from srrg2_laser_slam_2d_tpu_torch.ops.projector import PolarProjection
+
+    proj = PolarProjection.make(cols=100, angle_min=-3.0, angle_max=3.0)
+    xy = torch.tensor([[[1.0, 0.1], [2.0, -0.3], [1.5, 0.4]]] * 2)
+    nm = torch.tensor([[[1.0, 0.0]] * 3] * 2)
+    valid = torch.ones(2, 3, dtype=torch.bool)
+    extr = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 3.14159]])
+    before = (mak.launches, bzk.launches, exp_gather.launches)
+    r = mak.fused_projective_align_multi(proj, xy, nm, valid, extr, xy[0], nm[0], valid[0],
+                                         torch.zeros(3), iterations=2, min_inliers=1)
+    assert r.iter_stats.shape == (2, 4) and float(r.num_corr) >= 3
+    geoT = torch.zeros(8, 128)
+    geoT[0, :3], geoT[4, :3] = 1.0, 1.0
+    assert bzk.beam_zbuffer_probe(proj, geoT).shape == (8, 128)
+    canvas, idx = exp_gather.make_inputs(2, "cpu", lanes=128, shift=8)
+    assert exp_gather.gather_probe(canvas, idx, 3).shape == (8, 2, 128)
+    assert (mak.launches, bzk.launches, exp_gather.launches) == before
+    with pytest.raises(ValueError):
+        mak.fused_projective_align_multi(proj, xy.to("meta"), nm.to("meta"), valid.to("meta"),
+                                         extr.to("meta"), xy[0].to("meta"), nm[0].to("meta"),
+                                         valid[0].to("meta"), torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError):
+        bzk.beam_zbuffer_probe(proj, geoT.to("meta"))
+    with pytest.raises(ValueError):
+        exp_gather.gather_probe(canvas.to("meta"), idx.to("meta"), 3)
+    with pytest.raises(ValueError):   # more cues than the kernel holds
+        mak.fused_projective_align_multi(proj, xy.repeat(3, 1, 1), nm.repeat(3, 1, 1),
+                                         valid.repeat(3, 1), extr.repeat(3, 1), xy[0], nm[0],
+                                         valid[0], torch.zeros(3))
