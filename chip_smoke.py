@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      started together);
   2. the frame kernel against its plain PyTorch version on the card, on the
      first corridor chunk at the main path's shape (B = 768, T = 1024),
-     local-map splits inside the chunk;
+     local-map splits inside the chunk, then on its first ``RAW_FRAMES``
+     frames in the raw [T, F, 8] layout (the kernel z-buffers the rows
+     itself); its time per chunk and per T = 1 launch (route D's);
   3. the NN-ICP wrapper ``fused_align_pairs`` on the card against its plain
      version on the same packed inputs, at J = 128 pairs, F = M = 1024
      points, 30 iterations, correspondence refresh 3;
@@ -140,6 +142,7 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # float32 outside the tensor cores
 OUT_DIR = "chiprun_out"
 FRAME_MIN_AGREE = 64
+RAW_FRAMES = 256
 NN_CHECK_J = 128
 CHUNK = 1024
 STREAM_K = 32
@@ -205,50 +208,22 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 # ------------------------------------------------------------------ phase 2
 
-def corridor_chunk(msgs, n: int, pcfg, device):
-    """The first ``n`` laser frames of the corridor log as clouds on the
-    card, with the odometry each frame saw."""
-    from srrg2_laser_slam_2d_tpu_torch.io.messages import LaserMessage, OdometryMessage
-    from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import LaserModel, ScanPreprocessor
-
-    ranges, odoms, last, model = [], [], np.zeros(3, np.float32), None
-    for m in msgs:
-        if isinstance(m, OdometryMessage):
-            last = np.asarray(m.pose, np.float32)
-        elif isinstance(m, LaserMessage):
-            model = LaserModel(len(m.ranges), m.angle_min, m.angle_max,
-                               m.range_min, m.range_max)
-            ranges.append(np.asarray(m.ranges, np.float32))
-            odoms.append(last)
-            if len(ranges) == n:
-                break
-    pre = ScanPreprocessor(pcfg, device=device)
-    pre.set_model(model)
-    return pre.compute(np.stack(ranges)), np.stack(odoms)
-
-
-def check_frame_kernel(msgs, slam_cfg, pcfg, device) -> dict:
-    import dataclasses
-
-    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
-    from srrg2_laser_slam_2d_tpu_torch.models.slam import frame_spec
+def hold_frames(label: str, spec, st, meas, need_split: bool) -> tuple[float, int, int, float]:
+    """The frame kernel against its plain version over one launch: every
+    merge decision agrees over at least ``FRAME_MIN_AGREE`` frames (with a
+    split among them where ``need_split``), the split flags are equal, the
+    poses, the points of those frames and the end state within 1e-3, 99.5 %
+    of kinds and targets equal. Returns (error, frames fully compared,
+    splits among them, the plain version's milliseconds)."""
     from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
 
-    spec = dataclasses.replace(frame_spec(slam_cfg),
-                               split_distance=slam_cfg.local_map_distance)
-    B = spec.cols_padded
-    clouds, odoms = corridor_chunk(msgs, CHUNK + 1, pcfg, device)
-    st = ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32), odom=odoms[0])
-    measC = ft.pack_measurement_canvas_batch(
-        spec, clouds.map(lambda x: x[1:]), torch.from_numpy(odoms[1:]).to(device))
-    T = measC.shape[0]
-
-    kc, kp, kpay = fk.track_frames_grid(spec, st.cacheT, st.pose, measC)
+    T, B = meas.shape[0], spec.cols_padded
+    kc, kp, kpay = fk.track_frames_grid(spec, st.cacheT, st.pose, meas)
     torch.cuda.synchronize()
     # the plain version takes tens of seconds for a chunk: one timed run
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    pc, pp, ppay = fk.track_frames_grid_plain(spec, st.cacheT, st.pose, measC)
+    pc, pp, ppay = fk.track_frames_grid_plain(spec, st.cacheT, st.pose, meas)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -266,18 +241,50 @@ def check_frame_kernel(msgs, slam_cfg, pcfg, device) -> dict:
     state_err = float(max(np.abs(kp.cpu().numpy() - pp.cpu().numpy()).max(),
                           np.abs(kc.cpu().numpy() - pc.cpu().numpy()).max()))
     err = max(prefix_err, pose_err, state_err)
-    log(f"frame kernel T={T} B={B}: every merge decision agrees over the first "
+    log(f"frame kernel {label} T={T} B={B}: every merge decision agrees over the first "
         f"{agree} frames ({splits} splits), point err there {prefix_err:.3g}; "
-        f"over the chunk: pose err {pose_err:.3g}, state err {state_err:.3g}, "
+        f"over the launch: pose err {pose_err:.3g}, state err {state_err:.3g}, "
         f"kind agree {kind_eq.mean():.5f}, target agree {target_eq.mean():.5f}, "
-        f"frames with a differing decision {flips.size}")
-    assert agree >= FRAME_MIN_AGREE, f"a merge decision differs at frame {agree}"
-    assert splits >= 1, "the fully compared frames must split a local map"
-    assert np.array_equal(kpay[:, 6, 7], ppay[:, 6, 7]), "split frames differ"
-    assert err <= 1e-3, f"frame kernel disagrees with its plain version: {err}"
-    assert kind_eq.mean() >= 0.995 and target_eq.mean() >= 0.995
+        f"frames with a differing decision {flips.size}, plain {plain_ms:.1f} ms")
+    assert agree >= FRAME_MIN_AGREE, f"{label}: a merge decision differs at frame {agree}"
+    assert splits >= 1 or not need_split, "the fully compared frames must split a local map"
+    assert np.array_equal(kpay[:, 6, 7], ppay[:, 6, 7]), f"{label}: split frames differ"
+    assert err <= 1e-3, f"{label}: frame kernel disagrees with its plain version: {err}"
+    assert kind_eq.mean() >= 0.995 and target_eq.mean() >= 0.995, label
+    return err, agree, splits, plain_ms
+
+
+def check_frame_kernel(msgs, slam_cfg, pcfg, device) -> dict:
+    import dataclasses
+
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
+    from srrg2_laser_slam_2d_tpu_torch.models.slam import frame_spec
+    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
+
+    spec = dataclasses.replace(frame_spec(slam_cfg),
+                               split_distance=slam_cfg.local_map_distance)
+    B = spec.cols_padded
+    clouds, odoms = corridor_e2e.first_frames(msgs, CHUNK + 1, pcfg, device)
+    st = ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32), odom=odoms[0])
+    measC = ft.pack_measurement_canvas_batch(
+        spec, clouds.map(lambda x: x[1:]), torch.from_numpy(odoms[1:]).to(device))
+    T = measC.shape[0]
+    err, agree, splits, plain_ms = hold_frames("canvas layout", spec, st, measC, True)
+
+    # the raw [T, F, 8] layout (meas_as_canvas=False): the kernel z-buffers
+    # each frame's rows itself
+    raw = dataclasses.replace(spec, meas_as_canvas=False)
+    measF = ft.pack_measurement_batch(clouds.map(lambda x: x[1:RAW_FRAMES + 1]),
+                                      torch.from_numpy(odoms[1:RAW_FRAMES + 1]).to(device))
+    raw_err, raw_agree, _, raw_plain_ms = hold_frames("raw layout", raw, st, measF, False)
+    raw_ms = cuda_time_ms(lambda: fk.track_frames_grid(raw, st.cacheT, st.pose, measF), 5)
 
     ms = cuda_time_ms(lambda: fk.track_frames_grid(spec, st.cacheT, st.pose, measC), 5)
+    # one frame a launch, as the per-message loop (route D) launches it
+    m0 = measC[0].contiguous()
+    t1_ms = device_time_ms(lambda: fk.frame_step(spec, m0, st.cacheT, st.pose), 200)
+    t1_paced_ms = cuda_time_ms(lambda: fk.frame_step(spec, m0, st.cacheT, st.pose), 200)
     # bound: what the function reads and writes, once each (canvas rows 0-5 and
     # the 4 odometry lanes in, 8 payload rows out, cache rows 0-5 and the pose
     # in, 8 cache rows and the pose out); operations counted from the frame
@@ -285,14 +292,20 @@ def check_frame_kernel(msgs, slam_cfg, pcfg, device) -> dict:
     bytes_moved = 4 * (T * ((6 + 8) * B + 4) + (6 + 8) * B + 2 * 16)
     flops = T * B * fk.flops_per_lane_frame(spec.iterations)
     b_ms, b_by = bound(bytes_moved, flops)
-    log(f"frame kernel T={T}: {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"frame kernel T={T}: {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"T=1: {t1_ms:.4f} ms ({t1_paced_ms:.4f} at the host's pace); raw layout "
+        f"T={RAW_FRAMES} F={measF.shape[1]}: {raw_ms:.3f} ms, plain {raw_plain_ms:.1f} ms")
     return {"name": "frame_kernel", "route": "cuda",
             "source": "srrg2_laser_slam_2d_tpu_torch/csrc/frame_kernel.cu",
             "replaces": "srrg2_laser_slam_2d_tpu/ops/pallas_frame.py:489",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(err, raw_err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": f"T={T} B={B} iterations={spec.iterations}",
-            "frames_compared": agree, "splits_compared": splits}
+            "frames_compared": agree, "splits_compared": splits,
+            "t1_ms": t1_ms, "t1_host_paced_ms": t1_paced_ms,
+            "raw": {"frames": RAW_FRAMES, "rows": int(measF.shape[1]), "ms": raw_ms,
+                    "plain_ms": raw_plain_ms, "max_abs_err": raw_err,
+                    "frames_compared": raw_agree}}
 
 
 # ------------------------------------------------------------------ phase 3
@@ -572,12 +585,13 @@ def tracked_scene(msgs, slam_cfg, pcfg, device):
     kernel (no split), which leaves a scene of a few thousand live points in
     8,192 rows and the robot's pose in it; then the next measurement with
     the odometry step that leads to it."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
     from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
     from srrg2_laser_slam_2d_tpu_torch.models.slam import frame_spec
     from srrg2_laser_slam_2d_tpu_torch.utils import geometry
 
     spec = frame_spec(slam_cfg)
-    clouds, odoms = corridor_chunk(msgs, SCENE_FRAMES + 1, pcfg, device)
+    clouds, odoms = corridor_e2e.first_frames(msgs, SCENE_FRAMES + 1, pcfg, device)
     S = torch.zeros(3, device=device)
     st = ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32), odom=odoms[0])
     measC = ft.pack_measurement_canvas_batch(
@@ -919,9 +933,10 @@ def routes_in_one_map(slam_cfg, pcfg, msgs, device) -> dict:
     ``robot_in_local_map`` within 0.01 m and 0.01 rad at every frame."""
     import dataclasses
 
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
     from srrg2_laser_slam_2d_tpu_torch.models.tracker import LaserTracker
 
-    clouds, odoms = corridor_chunk(msgs, ONE_MAP_SCANS, pcfg, device)
+    clouds, odoms = corridor_e2e.first_frames(msgs, ONE_MAP_SCANS, pcfg, device)
     poses = {}
     for name, flags in (("C", {}), ("A", MESSAGE_ROUTES[0][1]), ("B", MESSAGE_ROUTES[3][1])):
         tracker = LaserTracker(dataclasses.replace(slam_cfg.tracker, **flags), device=device)

@@ -48,6 +48,30 @@ def load_messages(path: str = DATA) -> list:
     return list(JsonlFileSource(path))
 
 
+def first_frames(messages: list, n: int, pcfg, device):
+    """The first ``n`` laser frames of a log as preprocessed clouds on
+    ``device``, with the odometry each frame saw ([n, 3] numpy)."""
+    import numpy as np
+
+    from ..io.messages import LaserMessage, OdometryMessage
+    from ..models.preprocessor import LaserModel, ScanPreprocessor
+
+    ranges, odoms, last, model = [], [], np.zeros(3, np.float32), None
+    for m in messages:
+        if isinstance(m, OdometryMessage):
+            last = np.asarray(m.pose, np.float32)
+        elif isinstance(m, LaserMessage):
+            model = LaserModel(len(m.ranges), m.angle_min, m.angle_max,
+                               m.range_min, m.range_max)
+            ranges.append(np.asarray(m.ranges, np.float32))
+            odoms.append(last)
+            if len(ranges) == n:
+                break
+    pre = ScanPreprocessor(pcfg, device=device)
+    pre.set_model(model)
+    return pre.compute(np.stack(ranges)), np.stack(odoms)
+
+
 def run_pass(cfg_path: str, chunk: int, max_frames: int | None, device=None,
              messages: list | None = None):
     """One pass over the corridor log. Returns (summary dict, runner)."""

@@ -1,11 +1,13 @@
 // Device functions shared by the beam-space kernels: the fused
 // tracking-frame kernels frame_kernel.cu (one stream, with the local-map
 // split) and stream_kernel.cu (K independent streams, gather backends and
-// correspondence refresh), and the two aligners banded_align_kernel.cu and
-// projective_align_kernel.cu. The arithmetic follows the Pallas bodies
-// (ops/pallas_frame.py:_frame_body, ops/pallas_stream.py:_frame_body_b,
-// ops/pallas_banded_align.py, ops/pallas_projective_align.py) operation by
-// operation; every source is built with --fmad=false.
+// correspondence refresh), which share the whole frame step (frame_loop,
+// at the end of this file), and the aligners banded_align_kernel.cu,
+// projective_align_kernel.cu and multicue_align_kernel.cu. The arithmetic
+// follows the Pallas bodies (ops/pallas_frame.py:_frame_body,
+// ops/pallas_stream.py:_frame_body_b, ops/pallas_banded_align.py,
+// ops/pallas_projective_align.py) operation by operation; every source is
+// built with --fmad=false.
 
 #pragma once
 
@@ -14,14 +16,49 @@
 
 #define F32(x) ((float)(x))
 
+// Phase timing, compiled only with -DFRAME_PHASE_TIMING (bench/frame_phases.py
+// builds that variant; the default build carries none of it). Thread 0 of
+// block 0 stamps clock64() at the phase boundaries of the frame step and adds
+// each phase's cycles up over the launch. With -DFRAME_COUNT_BARRIERS as well,
+// FRAME_SYNC() also counts the block's barriers (a separate, untimed build).
+#define FRAME_PHASES 8
+#ifdef FRAME_PHASE_TIMING
+__device__ unsigned long long g_phase_cycles[FRAME_PHASES + 1];
+#define PHASE_BEGIN long long ph_last_ = clock64(); long long ph_acc_[FRAME_PHASES] = {};
+#define PHASE(i) do { if (threadIdx.x == 0 && blockIdx.x == 0) { \
+    const long long ph_now_ = clock64(); \
+    ph_acc_[i] += ph_now_ - ph_last_; ph_last_ = ph_now_; } } while (0)
+#define PHASE_END do { if (threadIdx.x == 0 && blockIdx.x == 0) \
+    for (int i_ = 0; i_ < FRAME_PHASES; ++i_) g_phase_cycles[i_] = ph_acc_[i_]; } while (0)
+// cycles of each phase over the last launch, then the barriers counted
+#define PHASE_EXPORT \
+  extern "C" int frame_phase_cycles(unsigned long long* out) { \
+    return (int)cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles)); }
+#ifdef FRAME_COUNT_BARRIERS
+#define FRAME_SYNC() do { __syncthreads(); \
+    if (threadIdx.x == 0 && blockIdx.x == 0) ++g_phase_cycles[FRAME_PHASES]; } while (0)
+#endif
+#else
+#define PHASE_BEGIN
+#define PHASE(i)
+#define PHASE_END
+#define PHASE_EXPORT
+#endif
+#ifndef FRAME_SYNC
+#define FRAME_SYNC() __syncthreads()
+#endif
+
 // Mirror of ops/frame_kernel.py:_FrameParams. K, gather_roll, band_shift and
-// corr_refresh are read by the K-stream kernel only.
+// corr_refresh are read by the K-stream kernel only; meas_rows (the rows F of
+// the raw [T, F, 8] measurement layout, 0 for the canvas layout) by the
+// single-stream kernel only.
 struct FrameParams {
   int T, B, cols, iterations, merge_shift, window, use_prior, use_split;
   int K, gather_roll, band_shift, corr_refresh;
   float f, c, range_min, range_max, merge_range, cap, point_distance,
       normal_cos, chi_threshold, min_inliers, odom_weight, merge_threshold,
       split_distance;
+  int meas_rows;
 };
 
 static __device__ const float kBig = 1.0e30f;
@@ -83,37 +120,17 @@ __device__ void block_sum(float* v, float* part, float* tot, float* out) {
   for (int k = 0; k < NV; ++k) out[k] = tot[k];
 }
 
-// Inclusive block scan of two integer lanes; returns the totals.
-__device__ void block_scan2(int& a, int& b, int* wsum, int& tot_a, int& tot_b) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    int ua = __shfl_up_sync(0xffffffffu, a, o);
-    int ub = __shfl_up_sync(0xffffffffu, b, o);
-    if (lane >= o) { a += ua; b += ub; }
-  }
-  if (lane == 31) { wsum[warp] = a; wsum[32 + warp] = b; }
-  __syncthreads();
-  int off_a = 0, off_b = 0;
-  tot_a = 0; tot_b = 0;
-  for (int w = 0; w < nwarps; ++w) {
-    if (w < warp) { off_a += wsum[w]; off_b += wsum[32 + w]; }
-    tot_a += wsum[w]; tot_b += wsum[32 + w];
-  }
-  a += off_a; b += off_b;
-  __syncthreads();
-}
-
 struct Fields {
   float px, py, nx, ny, d;
   int col;
   bool okp;
 };
 
-__device__ __forceinline__ Fields moving_fields(float mx, float my, float mnx, float mny,
-                                                float mv, const float* T, const FrameParams& p) {
+// A moving lane moved by the pose T, whose cosine and sine are c and s.
+__device__ __forceinline__ Fields fields_at(float mx, float my, float mnx, float mny, float mv,
+                                            const float* T, float c, float s,
+                                            const FrameParams& p) {
   Fields r;
-  float c = cosf(T[2]), s = sinf(T[2]);
   r.px = c * mx - s * my + T[0];
   r.py = s * mx + c * my + T[1];
   r.nx = c * mnx - s * mny;
@@ -126,23 +143,47 @@ __device__ __forceinline__ Fields moving_fields(float mx, float my, float mnx, f
   return r;
 }
 
-// Dense z-buffer of a cloud of n rows (xy, normal: [n][2]; valid: bytes)
-// into canvas rows [6][B] in shared memory (ops/_beam_kernels.py
+__device__ __forceinline__ Fields moving_fields(float mx, float my, float mnx, float mny,
+                                                float mv, const float* T, const FrameParams& p) {
+  return fields_at(mx, my, mnx, mny, mv, T, cosf(T[2]), sinf(T[2]), p);
+}
+
+// Dense z-buffer of a cloud of n rows into canvas rows [6][B] in shared
+// memory (ops/_beam_kernels.py
 // build_canvasT): per beam the closest depth (kBig where empty), the mean of
 // x, y, nx, ny over the points tied at that depth (each added as v * (1 /
 // count), as the TPU's normalised one-hot product does; exact for one or two
 // tied points, order-dependent in the last bit for three or more) and
 // has-point. With T != nullptr the rows are first moved by the pose T
 // (moving_fields), else they are taken as they are (the identity camera).
-// s_zmin [B] and s_cnt [B] are shared scratch; all threads call.
-__device__ __forceinline__ Fields canvas_point(const float* xy, const float* nm,
-                                               const unsigned char* valid, int i,
-                                               const float* T, const FrameParams& p) {
-  const float mv = valid[i] ? 1.0f : 0.0f;
-  if (T != nullptr)
-    return moving_fields(xy[2 * i], xy[2 * i + 1], nm[2 * i], nm[2 * i + 1], mv, T, p);
+// s_zmin [B] and s_cnt [B] are shared scratch; all threads call. The rows
+// come from a PackedCloud (the aligners' clouds) or RawRows (the frame
+// kernel's raw measurement layout).
+struct PackedCloud {   // xy, normal: [n][2]; valid: bytes
+  const float* xy;
+  const float* nm;
+  const unsigned char* valid;
+  __device__ void get(int i, float& x, float& y, float& nx, float& ny, float& mv) const {
+    x = xy[2 * i]; y = xy[2 * i + 1]; nx = nm[2 * i]; ny = nm[2 * i + 1];
+    mv = valid[i] ? 1.0f : 0.0f;
+  }
+};
+
+struct RawRows {       // [n][8]: x, y, nx, ny, valid, ...
+  const float* r;
+  __device__ void get(int i, float& x, float& y, float& nx, float& ny, float& mv) const {
+    x = r[8 * i]; y = r[8 * i + 1]; nx = r[8 * i + 2]; ny = r[8 * i + 3]; mv = r[8 * i + 4];
+  }
+};
+
+template <class Rows>
+__device__ __forceinline__ Fields canvas_point(const Rows& rows, int i, const float* T,
+                                               const FrameParams& p) {
+  float x, y, nx, ny, mv;
+  rows.get(i, x, y, nx, ny, mv);
+  if (T != nullptr) return moving_fields(x, y, nx, ny, mv, T, p);
   Fields r;
-  r.px = xy[2 * i]; r.py = xy[2 * i + 1]; r.nx = nm[2 * i]; r.ny = nm[2 * i + 1];
+  r.px = x; r.py = y; r.nx = nx; r.ny = ny;
   r.d = sqrtf(r.px * r.px + r.py * r.py);
   float colf = floorf(atan2_poly(r.py, r.px) * p.f + p.c);
   r.okp = (mv > 0.0f) && (colf >= 0.0f) && (colf < (float)p.cols) &&
@@ -151,10 +192,10 @@ __device__ __forceinline__ Fields canvas_point(const float* xy, const float* nm,
   return r;
 }
 
-__device__ __forceinline__ void build_canvasT(const float* xy, const float* nm,
-                                              const unsigned char* valid, int n,
-                                              const float* T, float* s_canvas, int* s_zmin,
-                                              float* s_cnt, int B, const FrameParams& p) {
+template <class Rows>
+__device__ __forceinline__ void build_canvas_rows(const Rows& rows, int n, const float* T,
+                                                  float* s_canvas, int* s_zmin, float* s_cnt,
+                                                  int B, const FrameParams& p) {
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     s_zmin[b] = __float_as_int(kBig);
     s_cnt[b] = 0.0f;
@@ -163,17 +204,17 @@ __device__ __forceinline__ void build_canvasT(const float* xy, const float* nm,
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Fields fl = canvas_point(xy, nm, valid, i, T, p);
+    const Fields fl = canvas_point(rows, i, T, p);
     if (fl.okp) atomicMin(&s_zmin[fl.col], __float_as_int(fl.d));   // d >= 0
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Fields fl = canvas_point(xy, nm, valid, i, T, p);
+    const Fields fl = canvas_point(rows, i, T, p);
     if (fl.okp && fl.d <= __int_as_float(s_zmin[fl.col])) atomicAdd(&s_cnt[fl.col], 1.0f);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Fields fl = canvas_point(xy, nm, valid, i, T, p);
+    const Fields fl = canvas_point(rows, i, T, p);
     if (fl.okp && fl.d <= __int_as_float(s_zmin[fl.col])) {
       const float inv = 1.0f / s_cnt[fl.col];
       atomicAdd(&s_canvas[B + fl.col], fl.px * inv);
@@ -188,6 +229,13 @@ __device__ __forceinline__ void build_canvasT(const float* xy, const float* nm,
     s_canvas[5 * B + b] = (s_cnt[b] > 0.0f) ? 1.0f : 0.0f;
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void build_canvasT(const float* xy, const float* nm,
+                                              const unsigned char* valid, int n,
+                                              const float* T, float* s_canvas, int* s_zmin,
+                                              float* s_cnt, int B, const FrameParams& p) {
+  build_canvas_rows(PackedCloud{xy, nm, valid}, n, T, s_canvas, s_zmin, s_cnt, B, p);
 }
 
 // A moving lane's matched canvas cell: depth, point, normal, has-point.
@@ -256,24 +304,57 @@ __device__ __forceinline__ void match_terms(const Fields& fl, const Gathered& g,
 
 // The odometry prior (bk.add_odom_prior) at prior P and estimate T, weight
 // w, added to the normal equations h = [h00 h01 h02 h11 h12 h22 b0 b1 b2].
-__device__ __forceinline__ void add_odom_prior(float* h, const float* P, const float* T,
-                                               float w) {
-  float ca = cosf(-P[2]), sa = sinf(-P[2]);
-  float atx = -(cosf(P[2]) * P[0] + sinf(P[2]) * P[1]);
-  float aty = -(-sinf(P[2]) * P[0] + cosf(P[2]) * P[1]);
-  float ex = atx + ca * T[0] - sa * T[1];
-  float ey = aty + sa * T[0] + ca * T[1];
-  float et = T[2] - P[2];
+// What depends on P and w alone is taken once (prior_terms), the rest at
+// each estimate (prior_increments).
+struct PriorTerms {
+  float P2, ca, sa, atx, aty, hdiag;
+};
+
+__device__ __forceinline__ PriorTerms prior_terms(const float* P, float w) {
+  PriorTerms c;
+  c.P2 = P[2];
+  c.ca = cosf(-P[2]);
+  c.sa = sinf(-P[2]);
+  const float cp = cosf(P[2]), sp = sinf(P[2]);
+  c.atx = -(cp * P[0] + sp * P[1]);
+  c.aty = -(-sp * P[0] + cp * P[1]);
+  c.hdiag = w * (c.ca * c.ca + c.sa * c.sa);
+  return c;
+}
+
+// What the prior adds to each of h[0..8] at the estimate T (nothing to h[1]);
+// it needs T and not the sums, so the frame step takes it before its
+// reduction ends.
+__device__ __forceinline__ void prior_increments(const PriorTerms& c, const float* T, float w,
+                                                 float* inc) {
+  const float ca = c.ca, sa = c.sa;
+  float ex = c.atx + ca * T[0] - sa * T[1];
+  float ey = c.aty + sa * T[0] + ca * T[1];
+  float et = T[2] - c.P2;
   float jx2 = ca * -T[1] - sa * T[0];
   float jy2 = sa * -T[1] + ca * T[0];
-  h[0] = h[0] + w * (ca * ca + sa * sa);
-  h[2] = h[2] + w * (ca * jx2 + sa * jy2);
-  h[3] = h[3] + w * (ca * ca + sa * sa);
-  h[4] = h[4] + w * (-sa * jx2 + ca * jy2);
-  h[5] = h[5] + w * (jx2 * jx2 + jy2 * jy2 + 1.0f);
-  h[6] = h[6] + w * (ca * ex + sa * ey);
-  h[7] = h[7] + w * (-sa * ex + ca * ey);
-  h[8] = h[8] + w * (jx2 * ex + jy2 * ey + et);
+  inc[0] = c.hdiag;
+  inc[1] = 0.0f;
+  inc[2] = w * (ca * jx2 + sa * jy2);
+  inc[3] = c.hdiag;
+  inc[4] = w * (-sa * jx2 + ca * jy2);
+  inc[5] = w * (jx2 * jx2 + jy2 * jy2 + 1.0f);
+  inc[6] = w * (ca * ex + sa * ey);
+  inc[7] = w * (-sa * ex + ca * ey);
+  inc[8] = w * (jx2 * ex + jy2 * ey + et);
+}
+
+__device__ __forceinline__ void add_increments(float* h, const float* inc) {
+  h[0] = h[0] + inc[0];
+#pragma unroll
+  for (int i = 2; i < 9; ++i) h[i] = h[i] + inc[i];
+}
+
+__device__ __forceinline__ void add_odom_prior(float* h, const float* P, const float* T,
+                                               float w) {
+  float inc[9];
+  prior_increments(prior_terms(P, w), T, w, inc);
+  add_increments(h, inc);
 }
 
 // Cramer solve of H dx = -b (|det| <= 1e-20 gives 0) from the normal
@@ -306,50 +387,204 @@ __device__ __forceinline__ void gn_update(const float* s, const float* T0, float
   cramer_step(h, s[9] >= p.min_inliers, T);
 }
 
-// The lean beam-window merge of one beam, shared by both kernels: the
-// measurement cell against the z-buffered cache cell that landed on it.
-struct MergeLane {
+
+// The one-hot band of lane b (the window of its 128-beam block) or, with
+// `roll`, the beam within +-band_shift of the lane (K-stream kernel only).
+__device__ __forceinline__ bool in_band(const Fields& fl, int b, bool roll, const FrameParams& p) {
+  if (roll) return fl.okp && abs(fl.col - b) <= p.band_shift;
+  const int w0 = min(max((b >> 7) * 128 - (p.window - 128) / 2, 0), p.B - p.window);
+  return in_block_window(fl, w0, p.window);
+}
+
+// ===========================================================================
+// The tracking-frame step of kernels 1 and 3 (frame_kernel.cu,
+// stream_kernel.cu): one persistent block per stream walks its T frames, the
+// stream's cache lanes and pose in registers, the frame's canvas rows and the
+// merge z-buffer in shared memory. A frame is latency on one SM: 11
+// Gauss-Newton passes, each a block reduction of 13 sums and a 3x3 solve that
+// every thread repeats (so the new pose needs no broadcast), then the merge.
+// With one block per SM the four schedulers issue every instruction of the
+// block, so the design spends as few instructions, and as few barriers, per
+// pass as it can:
+//  - FRAME_BPT beams a thread (beam b = thread + j * threads): fewer warps
+//    repeat the solve and meet at each barrier;
+//  - the passes walk only the cache lanes that hold a cell (about 40 % of the
+//    beams on the benchmark's and the corridor's scans), packed to the front
+//    at the frame's start; a lane without a cell adds exact zeros and is
+//    never merged;
+//  - ONE barrier per reduction (block_sum13): a transposed butterfly in each
+//    warp (16 shuffles for the 13 sums), the warp partials into one half of
+//    a double-buffered shared array, then every warp adds all partials
+//    itself in one fixed order, so all threads hold bit-identical totals;
+//  - what the frame fixes is taken once a frame (prior_terms), the prior's
+//    share of a pass before its reduction ends (prior_increments), a sine
+//    and cosine of one angle side by side (fields_at takes them); the next
+//    frame's initial guess (odometry alone) overlaps this frame's merge, and
+//    the payload's pose chain this frame's final pass;
+//  - the next frame's canvas rows are copied (cp.async) into the other half
+//    of a double buffer while this frame runs, so a frame starts with no
+//    load;
+//  - the merge's z-buffer writes share the final reduction's barrier, and
+//    the append scan takes one barrier (block_scan_beams, ballots in a warp).
+// That is 16 barriers a frame (2 to pack the lanes, 10 + 1 reductions at 10
+// iterations, 2 in the merge z-buffer, 1 in the scan); the raw measurement
+// layout z-buffers the rows at the frame's start (build_canvas_rows: 6 more).
+// ===========================================================================
+
+#ifndef FRAME_BPT
+#define FRAME_BPT 2
+#endif
+constexpr int kTerms = 13;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Threads of a frame block for B beams at bpt beams a thread (whole warps).
+__host__ __device__ constexpr int frame_threads(int B, int bpt) {
+  return ((B + bpt - 1) / bpt + 31) / 32 * 32;
+}
+
+// Shared memory of frame_loop, bytes (the layout is at its top).
+__host__ __device__ constexpr size_t frame_smem_bytes(int B) {
+  return sizeof(float) * (23 * (size_t)B + 2 * 32 * 16) +
+         sizeof(int) * (2 * (size_t)B + 2 * 4 * 32);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Start copying one frame's canvas rows 0-5 (B floats each, `row` floats
+// apart) into shared memory; all threads call. Every address is 16-byte
+// aligned (B is a multiple of 128; the wrappers check the tensors).
+__device__ __forceinline__ void prefetch_rows(float* s_rows, const float* rows, size_t row,
+                                              int B) {
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+    for (int c = 4 * threadIdx.x; c < B; c += 4 * blockDim.x)
+      cp_async16(s_rows + r * B + c, rows + r * row + c);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_rows() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The odometry-predicted initial guess and prior of a frame, T0 = (D o S)^-1
+// with D the odometry step since the last valid reading; it depends on the
+// odometry alone, so the frame loop takes it one frame ahead.
+struct Guess {
+  float T0[3];
+  PriorTerms prior;
+};
+
+__device__ __forceinline__ Guess initial_guess(const float* last_odom, float has_odom,
+                                               const float* odom, float ov, const float* S,
+                                               const FrameParams& p) {
+  Guess g;
+  float D[3] = {0.f, 0.f, 0.f};
+  if (has_odom > 0.0f && ov > 0.0f) {
+    float inv_lo[3];
+    inverse_s(last_odom, inv_lo);
+    compose_s(inv_lo, odom, D);
+  }
+  float DS[3];
+  compose_s(D, S, DS);
+  inverse_s(DS, g.T0);
+  g.prior = {};
+  if (p.use_prior) g.prior = prior_terms(g.T0, p.odom_weight);
+  return g;
+}
+
+// One level of the transposed butterfly: lanes that differ in bit `o` each
+// send the half of their first 2N values that the other keeps, and keep the
+// pair's sums of their own half.
+template <int N>
+__device__ __forceinline__ void butterfly_level(float* x, int lane, int o) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = up ? x[i] : x[i + N];
+    const float keep = up ? x[i + N] : x[i];
+    x[i] = keep + __shfl_xor_sync(kFull, send, o);
+  }
+}
+
+// Block sums of the 13 terms with ONE barrier; every thread gets the totals.
+// part: shared [2][32][16]; `buf` alternates between consecutive calls, so a
+// warp that runs ahead writes the other half while slower warps still read
+// this one. Every warp adds all warp partials itself in the same order, so
+// all threads hold the same totals bit for bit.
+__device__ __forceinline__ void block_sum13(const float* v, float* part, int buf, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  float x[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) x[k] = k < kTerms ? v[k] : 0.0f;
+  butterfly_level<8>(x, lane, 16);
+  butterfly_level<4>(x, lane, 8);
+  butterfly_level<2>(x, lane, 4);
+  butterfly_level<1>(x, lane, 2);
+  x[0] = x[0] + __shfl_xor_sync(kFull, x[0], 1);   // lanes 2k and 2k + 1: the warp's sum k
+  float* pb = part + buf * 32 * 16;
+  if (!(lane & 1) && (lane >> 1) < kTerms) pb[warp * 16 + (lane >> 1)] = x[0];
+  FRAME_SYNC();
+  const int k = lane & 15;
+  float acc = 0.0f;
+  if (k < kTerms)
+    for (int w = lane >> 4; w < nw; w += 2) acc += pb[w * 16 + k];
+  acc = acc + __shfl_xor_sync(kFull, acc, 16);
+#pragma unroll
+  for (int t = 0; t < kTerms; ++t) out[t] = __shfl_sync(kFull, acc, t);
+}
+
+// Inclusive scan over the beams in beam order (beam b = thread + j * threads)
+// of each thread's BPT pairs of flags q[j] (bits 0 and 16), with ONE
+// barrier: q[j] becomes the two inclusive counts (at most 1,024 each, in the
+// low and high 16 bits) and `total` gets both totals. Within a warp the
+// counts come from ballots; s_scan: shared [4][32].
+template <int BPT>
+__device__ __forceinline__ void block_scan_beams(int* q, int* s_scan, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const unsigned upto = kFull >> (31 - lane);   // lanes 0..lane
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) {
+    const unsigned a = __ballot_sync(kFull, q[j] & 1), m = __ballot_sync(kFull, q[j] >> 16);
+    q[j] = __popc(a & upto) | (__popc(m & upto) << 16);
+    if (lane == 0) s_scan[j * 32 + warp] = __popc(a) | (__popc(m) << 16);
+  }
+  FRAME_SYNC();
+  int before = 0;   // every beam of the earlier j
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) {
+    int w = lane < nw ? s_scan[j * 32 + lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += u;
+    }
+    const int earlier = __shfl_sync(kFull, w, warp > 0 ? warp - 1 : 0);
+    q[j] += before + (warp > 0 ? earlier : 0);
+    before += __shfl_sync(kFull, w, nw - 1);
+  }
+  total = before;
+}
+
+// The lean beam-window merge of beam b (after the shift z-buffer of the
+// transformed cache lanes): the measurement cell against the cache cell
+// that landed on the beam. merge_flags is the decision alone (what the
+// append scan needs), merge_decide the cells as well.
+struct MergeFlags {
   bool m_ok, s_ok, do_merge, modify, do_append;
+};
+
+struct MergeLane : MergeFlags {
   float upd_px, upd_py, upd_nx, upd_ny;   // the cell the scene receives (sensor frame)
   float spx, spy, snx, sny, srow;          // the cache cell seen on this beam
 };
 
-// Shift z-buffer of the transformed cache lanes (two shared-memory atomics:
-// min depth, then the highest source lane among the depth winners, which is
-// the order the TPU's roll enumeration -shift..+shift resolves ties in),
-// then the per-beam merge decision against the measurement canvas.
-// s_src [5][B], s_zmin [B], s_win [B] are shared scratch; all threads call.
-__device__ __forceinline__ MergeLane merge_lane(const Fields& fl, float crow,
-                                                const float* s_canvas, float* s_src,
-                                                int* s_zmin, int* s_win, int B,
-                                                const FrameParams& p) {
-  const int b = threadIdx.x;
-  s_zmin[b] = __float_as_int(kBig);
-  s_win[b] = -1;
-  s_src[b] = fl.px;
-  s_src[B + b] = fl.py;
-  s_src[2 * B + b] = fl.nx;
-  s_src[3 * B + b] = fl.ny;
-  s_src[4 * B + b] = crow;
-  __syncthreads();
-  const bool elig = fl.okp && crow >= 0.0f && abs(fl.col - b) <= p.merge_shift;
-  if (elig) atomicMin(&s_zmin[fl.col], __float_as_int(fl.d));   // d >= 0
-  __syncthreads();
-  if (elig && fl.d <= __int_as_float(s_zmin[fl.col])) atomicMax(&s_win[fl.col], b);
-  __syncthreads();
-  MergeLane m;
+__device__ __forceinline__ MergeFlags merge_flags(int b, const float* s_canvas,
+                                                  const int* s_zmin, int B,
+                                                  const FrameParams& p) {
+  MergeFlags m;
   const float smin = __int_as_float(s_zmin[b]);
   m.s_ok = smin < kBig;
-  const int wl = s_win[b];
-  m.spx = 0.f; m.spy = 0.f; m.snx = 0.f; m.sny = 0.f; m.srow = 0.f;
-  if (m.s_ok) {
-    m.spx = s_src[wl]; m.spy = s_src[B + wl]; m.snx = s_src[2 * B + wl];
-    m.sny = s_src[3 * B + wl]; m.srow = s_src[4 * B + wl];
-  }
-
-  const float fmin = s_canvas[b], bfx = s_canvas[B + b], bfy = s_canvas[2 * B + b];
-  const float bfnx = s_canvas[3 * B + b], bfny = s_canvas[4 * B + b];
-  const float fhas = s_canvas[5 * B + b];
+  const float fmin = s_canvas[b], fhas = s_canvas[5 * B + b];
   m.m_ok = (fhas > 0.5f) && (fmin <= p.merge_range);
   const float dr = fmin - smin;
   const bool both = m.m_ok && m.s_ok;
@@ -357,6 +592,23 @@ __device__ __forceinline__ MergeLane merge_lane(const Fields& fl, float crow,
   const bool do_replace = both && !m.do_merge && (dr > 0.0f);
   m.do_append = (m.m_ok && !m.s_ok) || (both && !m.do_merge && !do_replace);
   m.modify = m.do_merge || do_replace;
+  return m;
+}
+
+__device__ __forceinline__ MergeLane merge_decide(int b, const float* s_canvas,
+                                                  const float* s_src, const int* s_zmin,
+                                                  const int* s_win, int B,
+                                                  const FrameParams& p) {
+  MergeLane m;
+  static_cast<MergeFlags&>(m) = merge_flags(b, s_canvas, s_zmin, B, p);
+  const int wl = s_win[b];
+  m.spx = 0.f; m.spy = 0.f; m.snx = 0.f; m.sny = 0.f; m.srow = 0.f;
+  if (m.s_ok) {
+    m.spx = s_src[wl]; m.spy = s_src[B + wl]; m.snx = s_src[2 * B + wl];
+    m.sny = s_src[3 * B + wl]; m.srow = s_src[4 * B + wl];
+  }
+  const float bfx = s_canvas[B + b], bfy = s_canvas[2 * B + b];
+  const float bfnx = s_canvas[3 * B + b], bfny = s_canvas[4 * B + b];
 
   float avg_px = 0.5f * (m.spx + bfx), avg_py = 0.5f * (m.spy + bfy);
   float avg_nx = 0.5f * (m.snx + bfnx), avg_ny = 0.5f * (m.sny + bfny);
@@ -368,4 +620,379 @@ __device__ __forceinline__ MergeLane merge_lane(const Fields& fl, float crow,
   m.upd_nx = m.do_merge ? avg_nx : bfnx;
   m.upd_ny = m.do_merge ? avg_ny : bfny;
   return m;
+}
+
+// The frame loop of both kernels. kStreams = false: kernel 1 (one stream,
+// pose [2][8], odometry in canvas row 6 or raw column 5, the local-map split,
+// stats lanes 0-11, the one-hot band, one gather per update). kStreams =
+// true: kernel 3, this block's stream blockIdx.x of K (field rows K * B
+// floats apart, pose [K][16], odometry [T][K][8], stats lanes 0-6, both
+// bands, corr_refresh). Arithmetic follows the Pallas bodies operation by
+// operation.
+template <int BPT, bool kStreams>
+__device__ __forceinline__ void frame_loop(float* smem, const float* __restrict__ meas,
+                                           const float* __restrict__ odoms,
+                                           const float* __restrict__ cache0,
+                                           const float* __restrict__ pose0,
+                                           float* __restrict__ out_cache,
+                                           float* __restrict__ out_pose,
+                                           float* __restrict__ payloads, const FrameParams& p) {
+  const int B = p.B, nt = blockDim.x;
+  const int k = kStreams ? blockIdx.x : 0;
+  const int K = kStreams ? p.K : 1;
+  const size_t row = (size_t)K * B;         // floats between two field rows
+  const size_t lane0 = (size_t)k * B;       // this stream's lanes within a row
+  const bool raw = !kStreams && p.meas_rows > 0;
+  const bool roll = kStreams && p.gather_roll;
+  const int refresh = kStreams ? max(p.corr_refresh, 1) : 1;
+
+  float* s_canvas = smem;                         // [2][6][B] canvas rows, two frames
+  float* s_src = s_canvas + 12 * B;               // [5][B] z-buffer source values
+  float* s_lanes = s_src + 5 * B;                 // [6][B] the frame's valid lanes, packed
+  float* s_part = s_lanes + 6 * B;                // [2][32][16] warp partial sums
+  int* s_zmin = (int*)(s_part + 2 * 32 * 16);     // [B] min depth (float bits)
+  int* s_win = s_zmin + B;                        // [B] winning source lane
+  int* s_scan = s_win + B;                        // [4][32] warp scan totals (merge)
+  int* s_pack = s_scan + 4 * 32;                  // [4][32] warp scan totals (packing)
+
+  // this thread's beams and their carried cache lanes (registers); a beam
+  // past B holds an invalid cell
+  int bj[BPT];
+  bool on[BPT];
+  float cx[BPT], cy[BPT], cnx[BPT], cny[BPT], cval[BPT], crow[BPT];
+  const float* c0 = cache0 + lane0;
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) {
+    const int b = threadIdx.x + j * nt;
+    bj[j] = b;
+    on[j] = b < B;
+    cx[j] = on[j] ? c0[b] : 0.f;
+    cy[j] = on[j] ? c0[row + b] : 0.f;
+    cnx[j] = on[j] ? c0[2 * row + b] : 0.f;
+    cny[j] = on[j] ? c0[3 * row + b] : 0.f;
+    cval[j] = on[j] ? c0[4 * row + b] : 0.f;
+    crow[j] = on[j] ? c0[5 * row + b] : -1.f;
+  }
+  // carried pose (every thread holds the same copy)
+  const float* ps0 = pose0 + (size_t)k * 16;
+  float X[3] = {ps0[0], ps0[1], ps0[2]};
+  float last_odom[3] = {ps0[3], ps0[4], ps0[5]};
+  float has_odom = ps0[6], count = ps0[7];
+  const float S[3] = {ps0[8], ps0[9], ps0[10]};
+  const float cS = cosf(S[2]), sS = sinf(S[2]);
+
+  // frame t's canvas rows (canvas layout) and odometry lanes x, y, theta, valid
+  const float* rows0 = meas + lane0;
+  auto rows_of = [&](int t) { return rows0 + (size_t)t * 8 * row; };
+  auto load_odom = [&](int t, float* o) {
+    if (kStreams) {
+      const float* od = odoms + ((size_t)t * K + k) * 8;
+      o[0] = od[0]; o[1] = od[1]; o[2] = od[2]; o[3] = od[3];
+    } else if (raw) {   // column 5 of rows 0-3
+      const float* mF = meas + (size_t)t * p.meas_rows * 8;
+      o[0] = mF[5]; o[1] = mF[13]; o[2] = mF[21]; o[3] = mF[29];
+    } else {            // row 6, lanes 0-3
+      const float* od = rows_of(t) + 6 * row;
+      o[0] = od[0]; o[1] = od[1]; o[2] = od[2]; o[3] = od[3];
+    }
+  };
+  if (!raw) {
+    prefetch_rows(s_canvas, rows_of(0), row, B);
+    wait_rows();
+    FRAME_SYNC();
+  }
+  Guess guess;
+  {
+    float odom[4];
+    load_odom(0, odom);
+    guess = initial_guess(last_odom, has_odom, odom, odom[3], S, p);
+  }
+  int pbuf = 0;
+  PHASE_BEGIN
+
+  for (int t = 0; t < p.T; ++t) {
+    float* cv = s_canvas + (t & 1) * 6 * B;
+    if (raw) {
+      FRAME_SYNC();   // the last frame's merge is done with the shared scratch
+      build_canvas_rows(RawRows{meas + (size_t)t * p.meas_rows * 8}, p.meas_rows, nullptr, cv,
+                        s_zmin, s_src, B, p);
+    }
+    float T[3] = {guess.T0[0], guess.T0[1], guess.T0[2]};
+    const PriorTerms prior = guess.prior;
+
+    // The moving lanes are the valid cache cells, re-framed prev-sensor ->
+    // prev-robot. A lane without a cell (most beams) adds exact zeros to
+    // every sum and is never merged, so the valid ones are packed to the
+    // front (rank by a ballot scan) and the passes walk only those: lane
+    // slot threadIdx.x + j * threads holds moving point, scene row, beam.
+    int qv[BPT], nv;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) qv[j] = cval[j] > 0.0f ? 1 : 0;
+    block_scan_beams<BPT>(qv, s_pack, nv);
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      if (!(cval[j] > 0.0f)) continue;
+      const int sl = (qv[j] & 0xffff) - 1;
+      s_lanes[sl] = cS * cx[j] - sS * cy[j] + S[0];
+      s_lanes[B + sl] = sS * cx[j] + cS * cy[j] + S[1];
+      s_lanes[2 * B + sl] = cS * cnx[j] - sS * cny[j];
+      s_lanes[3 * B + sl] = sS * cnx[j] + cS * cny[j];
+      s_lanes[4 * B + sl] = crow[j];
+      s_lanes[5 * B + sl] = __int_as_float(bj[j]);
+    }
+    FRAME_SYNC();
+    // this thread's lanes stay in shared memory (read at each pass: fewer
+    // live registers than copies would take)
+    bool lon[BPT];
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) lon[j] = (int)threadIdx.x + j * nt < nv;
+    auto lane = [&](int j) { return s_lanes + threadIdx.x + j * nt; };
+    auto lane_fields = [&](int j, const float* T, float c, float s) {
+      const float* L = lane(j);
+      return fields_at(L[0], L[B], L[2 * B], L[3 * B], 1.0f, T, c, s, p);
+    };
+    auto lane_beam = [&](int j) { return __float_as_int(lane(j)[5 * B]); };
+    // every thread is done with the last frame: its half of the canvas
+    // buffer takes the next frame's rows (waited for before the final pass's
+    // barrier)
+    if (!raw && t + 1 < p.T)
+      prefetch_rows(s_canvas + ((t + 1) & 1) * 6 * B, rows_of(t + 1), row, B);
+    PHASE(0);
+
+    // Gauss-Newton: one gather per outer step, up to `refresh` updates on it
+    // payload row 7: chi (lanes 0..its-1) and inliers (64..63+its) of each
+    // update, written by those beams as they come
+    float* iter_row = payloads + (size_t)t * 8 * row + lane0 + 7 * row;
+    float sums[kTerms];
+    Fields fl[BPT];
+    for (int it = 0; it < p.iterations;) {
+      Gathered g[BPT];
+      {
+        const float c = cosf(T[2]), s = sinf(T[2]);
+#pragma unroll
+        for (int j = 0; j < BPT; ++j) {
+          if (!lon[j]) continue;
+          fl[j] = lane_fields(j, T, c, s);
+          g[j] = gather_canvas(cv, B, fl[j].col, in_band(fl[j], lane_beam(j), roll, p));
+        }
+      }
+      for (int sub = 0; sub < refresh && it < p.iterations; ++sub, ++it) {
+        if (sub > 0) {
+          const float c = cosf(T[2]), s = sinf(T[2]);
+#pragma unroll
+          for (int j = 0; j < BPT; ++j)
+            if (lon[j]) fl[j] = lane_fields(j, T, c, s);
+        }
+        float acc[kTerms] = {};
+#pragma unroll
+        for (int j = 0; j < BPT; ++j) {
+          if (!lon[j]) continue;
+          float tm[kTerms];
+          match_terms(fl[j], g[j], p, tm);
+#pragma unroll
+          for (int q = 0; q < kTerms; ++q) acc[q] += tm[q];
+        }
+        float inc[9];
+        if (p.use_prior) prior_increments(prior, T, p.odom_weight, inc);
+        PHASE(1);
+        block_sum13(acc, s_part, pbuf, sums);
+        pbuf ^= 1;
+        PHASE(2);
+#pragma unroll
+        for (int j = 0; j < BPT; ++j) {
+          if (bj[j] == it) iter_row[it] = sums[10];
+          if (bj[j] == 64 + it) iter_row[64 + it] = sums[12];
+        }
+        float h[9] = {sums[0], sums[1], sums[2], sums[3], sums[4],
+                      sums[5], sums[6], sums[7], sums[8]};
+        if (p.use_prior) add_increments(h, inc);
+        cramer_step(h, sums[9] >= p.min_inliers, T);
+        PHASE(3);
+      }
+    }
+
+    // the new robot pose and the payload's frame, M = X' o S (before the
+    // final pass, whose per-beam work hides this chain's latency)
+    float inv_ST[3], ST[3], Xn[3], M[3];
+    compose_s(S, T, ST);
+    inverse_s(ST, inv_ST);
+    compose_s(X, inv_ST, Xn);
+    compose_s(Xn, S, M);
+    const float cM = cosf(M[2]), sM = sinf(M[2]);
+
+    // final pass (a fresh gather), with the merge's z-buffer inputs written
+    // before the reduction's barrier
+    float fs[kTerms];
+    {
+      const float c = cosf(T[2]), s = sinf(T[2]);
+      float acc[kTerms] = {};
+#pragma unroll
+      for (int j = 0; j < BPT; ++j) {
+        if (on[j]) {
+          s_zmin[bj[j]] = __float_as_int(kBig);
+          s_win[bj[j]] = -1;
+        }
+        if (!lon[j]) continue;
+        const int b = lane_beam(j);
+        fl[j] = lane_fields(j, T, c, s);
+        float tm[kTerms];
+        match_terms(fl[j], gather_canvas(cv, B, fl[j].col, in_band(fl[j], b, roll, p)),
+                    p, tm);
+#pragma unroll
+        for (int q = 0; q < kTerms; ++q) acc[q] += tm[q];
+        s_src[b] = fl[j].px;
+        s_src[B + b] = fl[j].py;
+        s_src[2 * B + b] = fl[j].nx;
+        s_src[3 * B + b] = fl[j].ny;
+        s_src[4 * B + b] = lane(j)[4 * B];   // scene row
+      }
+      if (!raw) wait_rows();   // the next frame's rows: visible to all after this barrier
+      block_sum13(acc, s_part, pbuf, fs);
+      pbuf ^= 1;
+    }
+    PHASE(4);
+
+    // this frame's and the next frame's odometry, for the next initial guess
+    // (loaded here, used after the merge's atomics)
+    float odom[4], odom_next[4] = {0.f, 0.f, 0.f, 0.f};
+    load_odom(t, odom);
+    if (t + 1 < p.T) load_odom(t + 1, odom_next);
+
+    // ---- merge: shift z-buffer of the transformed cache lanes (the closest
+    // depth, then the highest source lane among the depth winners: the order
+    // in which the TPU's roll enumeration -shift..+shift resolves ties) ----
+    bool elig[BPT];
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      elig[j] = lon[j] && fl[j].okp && lane(j)[4 * B] >= 0.0f &&
+                abs(fl[j].col - lane_beam(j)) <= p.merge_shift;
+      if (elig[j]) atomicMin(&s_zmin[fl[j].col], __float_as_int(fl[j].d));   // d >= 0
+    }
+    FRAME_SYNC();
+#pragma unroll
+    for (int j = 0; j < BPT; ++j)
+      if (elig[j] && fl[j].d <= __int_as_float(s_zmin[fl[j].col]))
+        atomicMax(&s_win[fl[j].col], lane_beam(j));
+    FRAME_SYNC();
+    // each beam's decision now, its cells after the scan (fewer live values)
+    int q[BPT];
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      const MergeFlags f = on[j] ? merge_flags(bj[j], cv, s_zmin, B, p) : MergeFlags{};
+      q[j] = (f.do_append ? 1 : 0) | (f.m_ok ? 1 << 16 : 0);
+    }
+    // the next frame's initial guess, from the odometry alone
+    if (odom[3] > 0.0f) { last_odom[0] = odom[0]; last_odom[1] = odom[1]; last_odom[2] = odom[2]; }
+    has_odom = fmaxf(has_odom, odom[3]);
+    if (t + 1 < p.T) guess = initial_guess(last_odom, has_odom, odom_next, odom_next[3], S, p);
+    PHASE(5);
+
+    // append slots (inclusive beam prefix sums) and split seed slots
+    int totals;
+    block_scan_beams<BPT>(q, s_scan, totals);
+    const float n_app = (float)(totals & 0xffff);
+    PHASE(6);
+
+    // slots rise with the prefix sum, so app_ok holds for the first cap - count
+    const float n_app_ok = fminf(n_app, fmaxf(p.cap - count, 0.0f));
+    float count_new = fminf(count + n_app, p.cap);
+    float do_split = 0.0f;
+    if (!kStreams && p.use_split) {
+      do_split = (sqrtf(Xn[0] * Xn[0] + Xn[1] * Xn[1]) >= p.split_distance) ? 1.0f : 0.0f;
+      if (do_split > 0.0f) count_new = fminf((float)(totals >> 16), p.cap);
+    }
+
+    float* pay = payloads + (size_t)t * 8 * row + lane0;
+#pragma unroll
+    for (int j = 0; j < BPT; ++j) {
+      if (!on[j]) continue;
+      const int b = bj[j];
+      const MergeLane m = merge_decide(b, cv, s_src, s_zmin, s_win, B, p);
+      const float slot = count + (float)(q[j] & 0xffff) - 1.0f;
+      const bool app_ok = m.do_append && (slot < p.cap);
+      float target = m.modify ? m.srow : (app_ok ? slot : -1.0f);
+      float kind = m.modify ? 1.0f : (app_ok ? 2.0f : 0.0f);
+      float pay_x = cM * m.upd_px - sM * m.upd_py + M[0];
+      float pay_y = sM * m.upd_px + cM * m.upd_py + M[1];
+      float pay_nx = cM * m.upd_nx - sM * m.upd_ny;
+      float pay_ny = sM * m.upd_nx + cM * m.upd_ny;
+      // carry: the post-merge visible cell per beam, current sensor frame
+      float ncx = m.m_ok ? m.upd_px : m.spx, ncy = m.m_ok ? m.upd_py : m.spy;
+      float nnx = m.m_ok ? m.upd_nx : m.snx, nny = m.m_ok ? m.upd_ny : m.sny;
+      float nrow = m.modify ? m.srow : (app_ok ? slot : ((m.s_ok && !m.m_ok) ? m.srow : -1.0f));
+      float nvalid = ((m.m_ok || m.s_ok) && nrow >= 0.0f) ? 1.0f : 0.0f;
+      if (do_split > 0.0f) {
+        // the new local map is seeded from the measurement
+        const float bfx = cv[B + b], bfy = cv[2 * B + b];
+        const float bfnx = cv[3 * B + b], bfny = cv[4 * B + b];
+        const float seed_slot = (float)(q[j] >> 16) - 1.0f;   // not capped (as in Pallas)
+        pay_x = cS * bfx - sS * bfy + S[0];
+        pay_y = sS * bfx + cS * bfy + S[1];
+        pay_nx = cS * bfnx - sS * bfny;
+        pay_ny = sS * bfnx + cS * bfny;
+        target = m.m_ok ? seed_slot : -1.0f;
+        kind = m.m_ok ? 2.0f : 0.0f;
+        ncx = bfx; ncy = bfy; nnx = bfnx; nny = bfny;
+        nrow = m.m_ok ? seed_slot : -1.0f;
+        nvalid = m.m_ok ? 1.0f : 0.0f;
+      }
+      pay[b] = pay_x;
+      pay[row + b] = pay_y;
+      pay[2 * row + b] = pay_nx;
+      pay[3 * row + b] = pay_ny;
+      pay[4 * row + b] = target;
+      pay[5 * row + b] = kind;
+      float st = 0.0f;
+      switch (b) {
+        case 0: st = T[0]; break;
+        case 1: st = T[1]; break;
+        case 2: st = T[2]; break;
+        case 3: st = fs[10]; break;
+        case 4: st = fs[9]; break;
+        case 5: st = fs[12]; break;
+        case 6: st = n_app_ok; break;
+        case 7: st = kStreams ? 0.0f : do_split; break;
+        case 8: st = kStreams ? 0.0f : Xn[0]; break;
+        case 9: st = kStreams ? 0.0f : Xn[1]; break;
+        case 10: st = kStreams ? 0.0f : Xn[2]; break;
+        case 11: st = kStreams ? 0.0f : count_new; break;
+        default: break;
+      }
+      pay[6 * row + b] = st;
+      const int its = p.iterations;
+      if (!(b < its || (b >= 64 && b < 64 + its))) pay[7 * row + b] = 0.0f;
+      cx[j] = ncx; cy[j] = ncy; cnx[j] = nnx; cny[j] = nny; cval[j] = nvalid; crow[j] = nrow;
+    }
+
+    // carry the pose to the next frame
+    if (do_split > 0.0f) { X[0] = 0.0f; X[1] = 0.0f; X[2] = 0.0f; }
+    else { X[0] = Xn[0]; X[1] = Xn[1]; X[2] = Xn[2]; }
+    count = count_new;
+    PHASE(7);
+  }
+  PHASE_END;
+
+  float* oc = out_cache + lane0;
+#pragma unroll
+  for (int j = 0; j < BPT; ++j) {
+    if (!on[j]) continue;
+    const int b = bj[j];
+    oc[b] = cx[j];
+    oc[row + b] = cy[j];
+    oc[2 * row + b] = cnx[j];
+    oc[3 * row + b] = cny[j];
+    oc[4 * row + b] = cval[j];
+    oc[5 * row + b] = crow[j];
+    oc[6 * row + b] = 0.0f;
+    oc[7 * row + b] = 0.0f;
+  }
+  if (threadIdx.x < 16) {
+    // lanes 0-7: X, last_odom, has_odom, count; 8-15: the pose block's second
+    // row as it came (kernel 1) or S and zeros (kernel 3)
+    const int i = threadIdx.x;
+    const float lanes[8] = {X[0], X[1], X[2], last_odom[0], last_odom[1], last_odom[2],
+                            has_odom, count};
+    out_pose[(size_t)k * 16 + i] =
+        i < 8 ? lanes[i] : (!kStreams ? ps0[i] : (i < 11 ? ps0[i] : 0.0f));
+  }
 }

@@ -13,6 +13,7 @@ XLA code, not Pallas kernels, in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -64,6 +65,36 @@ def pack_measurement_canvas_batch(spec: FrameSpec, clouds: Cloud,
         out[:, 6, 3] = (1.0 if odom_valid is None else
                         torch.as_tensor(odom_valid, dtype=torch.float32, device=dev))
     return out
+
+
+def pack_measurement_batch(clouds: Cloud, odoms: torch.Tensor | None = None,
+                           odom_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """[T, N, ...] clouds (+ [T, 3] odometry) -> [T, N, 8] raw kernel rows
+    (x, y, nx, ny, valid, 0, 0, 0), the ``meas_as_canvas=False`` layout: the
+    kernel z-buffers them itself. Column 5 of rows 0-3 carries [odom x, y,
+    theta, odom_valid] (valid defaults to 1 where odometry is given)."""
+    T, n = clouds.xy.shape[:2]
+    dev = clouds.xy.device
+    out = torch.zeros(T, n, 8, dtype=torch.float32, device=dev)
+    out[..., 0:2] = clouds.xy
+    out[..., 2:4] = clouds.normal
+    out[..., 4] = clouds.valid.to(torch.float32)
+    if odoms is not None:
+        out[:, 0:3, 5] = torch.as_tensor(odoms, dtype=torch.float32, device=dev)
+        out[:, 3, 5] = (1.0 if odom_valid is None else
+                        torch.as_tensor(odom_valid, dtype=torch.float32, device=dev))
+    return out
+
+
+def pack_measurement(cloud: Cloud, odom=None, odom_valid=False) -> torch.Tensor:
+    """One cloud -> its [N, 8] raw rows (``pack_measurement_batch``)."""
+    batch = cloud.map(lambda x: x[None])
+    if odom is None:
+        return pack_measurement_batch(batch)[0]
+    dev = cloud.xy.device
+    odom = torch.as_tensor(np.array(odom, np.float32), device=dev)[None]
+    valid = torch.tensor([float(odom_valid)], device=dev)
+    return pack_measurement_batch(batch, odom, valid)[0]
 
 
 def pack_measurement_canvas(spec: FrameSpec, cloud: Cloud, odom=None,
@@ -229,10 +260,11 @@ class FastTracker:
             self.state = seed(self.spec, measurement.to(self.device), self.sensor_in_robot,
                               odom=odom)
             return None
-        measC = pack_measurement_canvas(
-            self.spec, measurement.to(self.device),
-            odom if odom is not None else np.zeros(3, np.float32), odom is not None)
-        cacheT, pose, payload = frame_step(self.spec, measC, self.state.cacheT,
+        pack = (functools.partial(pack_measurement_canvas, self.spec)
+                if self.spec.meas_as_canvas else pack_measurement)
+        measF = pack(measurement.to(self.device),
+                     odom if odom is not None else np.zeros(3, np.float32), odom is not None)
+        cacheT, pose, payload = frame_step(self.spec, measF, self.state.cacheT,
                                            self.state.pose)
         self.state = self.state._replace(cacheT=cacheT, pose=pose)
         self._pending.append(payload)

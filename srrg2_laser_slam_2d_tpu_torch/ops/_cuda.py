@@ -35,7 +35,9 @@ _FLOAT = ctypes.c_float
 # (cloud xy, normal, valid, rows) twice, t0, prior, three outputs, params, stream
 _ALIGN_ARGS = ([_VOID] * 3 + [_INT]) * 2 + [_VOID] * 7
 _SIGNATURES = {
-    "frame_kernel": {"frame_track_grid": [_VOID] * 6 + [ctypes.c_void_p, _VOID]},
+    "frame_kernel": {"frame_track_grid": [_VOID] * 6 + [ctypes.c_void_p, _VOID],
+                     # terms, out, threads, stream (the reduction alone, for tests)
+                     "frame_block_sum13": [_VOID, _VOID, _INT, _VOID]},
     "nn_icp_kernel": {"nn_icp_align_pairs": [_VOID] * 5 + [ctypes.c_void_p, _VOID]},
     "stream_kernel": {"stream_track_grid": [_VOID] * 7 + [ctypes.c_void_p, _VOID]},
     "projector_kernel": {"project_local": [_VOID] * 6},
@@ -75,34 +77,39 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest
 
 
-def build(names=KERNELS, force: bool = False) -> dict[str, str]:
-    """Compile the named kernels, one ``nvcc`` per source, all started
-    together. Returns each compiler's output (register and shared-memory
-    use from ``-Xptxas -v``); raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_all(jobs) -> dict[str, str]:
+    """Run one ``nvcc`` per job, all started together. A job is (key,
+    source, library, extra flags); each library is replaced atomically once
+    its build succeeds. Returns each compiler's output (register and
+    shared-memory use from ``-Xptxas -v``); raises if any build fails."""
     nvcc = _nvcc()
     procs = {}
-    for name in names:
-        if not force and not _stale(name):
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    for key, src, lib, extra in jobs:
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", tmp, str(src)]
+        procs[key] = (tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
+    for key, (tmp, lib, proc) in procs.items():
         out, _ = proc.communicate()
-        logs[name] = out
+        logs[key] = out
         if proc.returncode != 0:
-            failed.append(name)
+            failed.append(key)
             os.unlink(tmp)
         else:
-            os.replace(tmp, library_path(name))   # atomic for concurrent users
+            os.replace(tmp, lib)   # atomic for concurrent users
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
+                           + "\n".join(logs[k] for k in failed))
     return logs
+
+
+def build(names=KERNELS, force: bool = False) -> dict[str, str]:
+    """Compile the named kernels into ``BUILD_DIR`` (``compile_all``)."""
+    return compile_all([(name, CSRC / f"{name}.cu", library_path(name), ())
+                        for name in names if force or _stale(name)])
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -127,6 +134,14 @@ def check_tensor(name: str, t, shape: tuple, device) -> None:
             or not t.is_contiguous():
         raise ValueError(f"{name}: need a contiguous float32 {shape} tensor on "
                          f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_aligned(name: str, t) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary (the frame kernels
+    copy their canvas rows in 16-byte pieces)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs a 16-byte aligned tensor "
+                         f"(storage offset {t.storage_offset()})")
 
 
 def cloud_tensors(name: str, xy, normal, valid, device):

@@ -8,14 +8,18 @@ an odometry prior, the lean beam-window merge, and the in-kernel local-map
 split. The CUDA kernel is ``csrc/frame_kernel.cu``; ``_frame_body_plain``
 below is its plain PyTorch version.
 
-Only the pre-z-buffered measurement layout (``meas_as_canvas=True``, the
-one the chunked SLAM loop uses) is ported. State and IO layouts are those
-of the Pallas kernel:
+Both measurement layouts of the Pallas kernel are ported: the
+pre-z-buffered canvases (``meas_as_canvas=True``, what the SLAM loops use)
+and the raw rows (``meas_as_canvas=False``, the JAX package's bit-exact
+parity oracle), which the kernel z-buffers itself each frame. State and IO
+layouts are those of the Pallas kernel:
   cacheT [8, B]: rows 0 x, 1 y, 2 nx, 3 ny, 4 valid, 5 scene row (-1 none).
   pose [2, 8]: row 0 = [X 0:3, last_odom 3:6, has_odom 6, scene count 7];
       row 1 = [sensor_in_robot 0:3, ...].
   measC [T, 8, B]: rows 0 depth, 1 x, 2 y, 3 nx, 4 ny, 5 has, row 6 lanes
       0-3 = [odom x, y, theta, odom_valid].
+  or measF [T, F, 8] (raw): rows (x, y, nx, ny, valid, aux, 0, 0), column 5
+      of rows 0-3 = [odom x, y, theta, odom_valid].
   payloads [T, 8, B]: rows 0-3 scene-frame point, 4 target row, 5 kind
       (0 none / 1 modify / 2 append), row 6 lanes 0-11 = [T'(3), chi,
       n_corr, n_inliers, n_app, split flag, X'(3), scene count], row 7
@@ -79,20 +83,23 @@ def flops_per_lane_frame(iterations: int) -> int:
 
 
 def _check_spec(spec: FrameSpec) -> None:
-    if not spec.meas_as_canvas:
-        raise NotImplementedError(
-            "only the pre-z-buffered [T, 8, B] measurement layout is ported")
     if spec.iterations > 64:
         raise ValueError("payload iteration row supports <= 64 iterations")
 
 
 # ------------------------------------------------------------ plain version
 
-def _frame_body_plain(spec: FrameSpec, canvasT, odomF, cacheT, pose):
-    """One frame. canvasT [8, B], odomF [4] (x, y, theta, valid), cacheT
-    [8, B], pose [2, 8] -> (cacheT', pose', payload [8, B])."""
+def _frame_body_plain(spec: FrameSpec, measF, cacheT, pose):
+    """One frame. measF [8, B] canvas or [F, 8] raw rows (spec's layout),
+    cacheT [8, B], pose [2, 8] -> (cacheT', pose', payload [8, B])."""
     proj = spec.projection
     B = spec.cols_padded
+    if spec.meas_as_canvas:
+        canvasT, odomF = measF, measF[6, 0:4]
+    else:
+        canvasT = bk.build_canvasT(measF[:, 0], measF[:, 1], measF[:, 2], measF[:, 3],
+                                   measF[:, 4], B, proj)
+        odomF = measF[0:4, 5]
     cap = float(spec.scene_capacity)
     dev = canvasT.device
     zero3 = torch.zeros(3, device=dev)
@@ -203,8 +210,7 @@ def track_frames_grid_plain(spec: FrameSpec, cacheT, pose, measC):
     _check_spec(spec)
     payloads = []
     for t in range(measC.shape[0]):
-        cacheT, pose, pay = _frame_body_plain(spec, measC[t], measC[t, 6, 0:4],
-                                              cacheT, pose)
+        cacheT, pose, pay = _frame_body_plain(spec, measC[t], cacheT, pose)
         payloads.append(pay)
     return cacheT, pose, torch.stack(payloads)
 
@@ -227,11 +233,11 @@ class _FrameParams(ctypes.Structure):
         ("point_distance", ctypes.c_float), ("normal_cos", ctypes.c_float),
         ("chi_threshold", ctypes.c_float), ("min_inliers", ctypes.c_float),
         ("odom_weight", ctypes.c_float), ("merge_threshold", ctypes.c_float),
-        ("split_distance", ctypes.c_float),
+        ("split_distance", ctypes.c_float), ("meas_rows", ctypes.c_int),
     ]
 
 
-def _params(spec: FrameSpec, T: int, K: int = 1) -> _FrameParams:
+def _params(spec: FrameSpec, T: int, K: int = 1, meas_rows: int = 0) -> _FrameParams:
     p = spec.projection
     return _FrameParams(
         T=T, B=spec.cols_padded, cols=p.cols, iterations=spec.iterations,
@@ -244,15 +250,16 @@ def _params(spec: FrameSpec, T: int, K: int = 1) -> _FrameParams:
         point_distance=spec.point_distance, normal_cos=spec.normal_cos,
         chi_threshold=spec.chi_threshold, min_inliers=float(spec.min_inliers),
         odom_weight=spec.odom_weight, merge_threshold=spec.merge_threshold,
-        split_distance=spec.split_distance,
+        split_distance=spec.split_distance, meas_rows=meas_rows,
     )
 
 
 def track_frames_grid(spec: FrameSpec, cacheT: torch.Tensor, pose: torch.Tensor,
                       measC: torch.Tensor):
-    """Track T frames in order as ONE launch. Returns (cacheT', pose',
-    payloads [T, 8, B]). CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+    """Track T frames in order as ONE launch. ``measC`` is [T, 8, B]
+    canvases or, with ``spec.meas_as_canvas`` False, [T, F, 8] raw rows.
+    Returns (cacheT', pose', payloads [T, 8, B]). CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
     global launches
     _check_spec(spec)
     if measC.device.type == "cpu":
@@ -262,16 +269,21 @@ def track_frames_grid(spec: FrameSpec, cacheT: torch.Tensor, pose: torch.Tensor,
     B = spec.cols_padded
     T = measC.shape[0]
     dev = measC.device
-    _cuda.check_tensor("measC", measC, (T, 8, B), dev)
+    rows = 0 if spec.meas_as_canvas else measC.shape[1]
+    _cuda.check_tensor("measC", measC, (T, 8, B) if rows == 0 else (T, rows, 8), dev)
     _cuda.check_tensor("cacheT", cacheT, (8, B), dev)
     _cuda.check_tensor("pose", pose, (2, 8), dev)
-    if B > 1024 or B % 128:
-        raise ValueError(f"cols_padded {B} must be a multiple of 128 and <= 1024")
+    _cuda.check_aligned("measC", measC)
+    if B > 1024 or B % 128 or spec.window > B:
+        raise ValueError(f"cols_padded {B} must be a multiple of 128 and <= 1024, "
+                         f"window {spec.window} within it")
+    if T < 1 or (not spec.meas_as_canvas and rows < 1):
+        raise ValueError(f"need at least one frame (and raw row), got {tuple(measC.shape)}")
     out_cache = torch.empty_like(cacheT)
     out_pose = torch.empty_like(pose)
     payloads = torch.empty((T, 8, B), dtype=torch.float32, device=dev)
     lib = _cuda.load("frame_kernel")
-    params = _params(spec, T)
+    params = _params(spec, T, meas_rows=rows)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.frame_track_grid(
@@ -286,6 +298,7 @@ def track_frames_grid(spec: FrameSpec, cacheT: torch.Tensor, pose: torch.Tensor,
 
 def frame_step(spec: FrameSpec, measC: torch.Tensor, cacheT: torch.Tensor,
                pose: torch.Tensor):
-    """One frame ([8, B] canvas): the same kernel with T = 1."""
+    """One frame ([8, B] canvas or [F, 8] raw rows): the same kernel with
+    T = 1."""
     c, p, pay = track_frames_grid(spec, cacheT, pose, measC[None].contiguous())
     return c, p, pay[0]

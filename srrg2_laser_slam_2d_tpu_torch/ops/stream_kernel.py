@@ -240,6 +240,8 @@ def track_streams_grid(spec: FrameSpec, cacheB: torch.Tensor, poseB: torch.Tenso
     _cuda.check_tensor("odom_stack", odom_stack, (T, K, 8), dev)
     _cuda.check_tensor("cacheB", cacheB, (8, K, B), dev)
     _cuda.check_tensor("poseB", poseB, (K, 16), dev)
+    _cuda.check_aligned("measC_stack", measC_stack)
+    _cuda.check_aligned("odom_stack", odom_stack)
     if B > 1024 or B % 128 or spec.window % 128 or spec.window > B:
         raise ValueError(f"cols_padded {B} must be a multiple of 128 and <= 1024, "
                          f"window {spec.window} a multiple of 128 within it")

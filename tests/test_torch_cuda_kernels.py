@@ -19,6 +19,7 @@ shift z-buffer's winners and validity EQUAL and depths within 1e-6; the
 gather EQUAL (the same additions in the same order)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -67,7 +68,23 @@ def _room_ranges(poses: np.ndarray, beams: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def test_frame_kernel_matches_plain_on_card(card):
+def _projection(pre, cols: int):
+    """The scans' own beam grid, or one of ``cols`` beams over the same
+    angles and ranges."""
+    if cols == pre.projection.cols:
+        return pre.projection
+    return projector_op.PolarProjection.make(cols=cols, angle_min=-np.pi, angle_max=np.pi,
+                                             range_min=0.0, range_max=30.0)
+
+
+@pytest.mark.parametrize("cols,window,raw", [(361, 256, False), (400, 256, True),
+                                             (100, 128, False), (1000, 256, False)],
+                         ids=["B384", "B512-raw", "B128", "B1024"])
+def test_frame_kernel_matches_plain_on_card(card, cols, window, raw):
+    """The chunk kernel against its plain version over 16 frames with a
+    local-map split, at B = 384, 128 and 1024 and in the raw [T, F, 8]
+    layout (at B = 512: off the scans' grid, so raw points do not sit on
+    beam-bin edges); then frame_step (T = 1)."""
     T, beams = 16, 361
     poses = np.stack([np.linspace(-2.0, 0.5, T + 1), np.linspace(-1.0, 0.2, T + 1),
                       np.linspace(0.0, 0.4, T + 1)], 1)
@@ -76,15 +93,18 @@ def test_frame_kernel_matches_plain_on_card(card):
     pre = ScanPreprocessor(pcfg, device=card)
     pre.set_model(LaserModel(beams, -np.pi, np.pi, 0.0, 30.0))
     clouds = pre.compute(_room_ranges(poses, beams))
-    spec = fk.FrameSpec(projection=pre.projection, scene_capacity=2048, iterations=8,
-                        split_distance=0.6)
+    spec = fk.FrameSpec(projection=_projection(pre, cols), scene_capacity=2048, iterations=8,
+                        window=window, split_distance=0.6, meas_as_canvas=not raw)
+    assert spec.cols_padded == {100: 128, 361: 384, 400: 512, 1000: 1024}[cols]
     st = ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32),
                  odom=poses[0].astype(np.float32))
-    measC = ft.pack_measurement_canvas_batch(
-        spec, clouds.map(lambda x: x[1:]),
-        torch.as_tensor(poses[1:], dtype=torch.float32, device=card))
+    odoms = torch.as_tensor(poses[1:], dtype=torch.float32, device=card)
+    pack = ft.pack_measurement_batch if raw else functools.partial(
+        ft.pack_measurement_canvas_batch, spec)
+    measC = pack(clouds.map(lambda x: x[1:]), odoms)
     before = fk.launches
     kc, kp, kpay = fk.track_frames_grid(spec, st.cacheT, st.pose, measC)
+    torch.cuda.synchronize()
     assert fk.launches == before + 1
     pc, pp, ppay = fk.track_frames_grid_plain(spec, st.cacheT, st.pose, measC)
     kpay, ppay = kpay.cpu().numpy(), ppay.cpu().numpy()
@@ -102,19 +122,22 @@ def test_frame_kernel_matches_plain_on_card(card):
     np.testing.assert_allclose(pay1.cpu().numpy(), kpay[0], atol=1e-5)
 
 
-def _room_streams(card, K: int, T: int, beams: int, spec_kw: dict):
+def _room_streams(card, K: int, T: int, beams: int, spec_kw: dict, cols: int):
     """K different drives through the room, packed for the K-stream kernel:
     (spec, seed states, cacheB, poseB, measC_stack, odom_stack)."""
     pcfg = PreprocessorConfig(voxelize_resolution=0.02, normal_window=8,
                               voxelize_mode="sequential")
     pre = ScanPreprocessor(pcfg, device=card)
     pre.set_model(LaserModel(beams, -np.pi, np.pi, 0.0, 30.0))
-    spec = fk.FrameSpec(projection=pre.projection, scene_capacity=2048, **spec_kw)
+    spec = fk.FrameSpec(projection=_projection(pre, cols), scene_capacity=2048, **spec_kw)
     states, meas, odoms = [], [], []
     for k in range(K):
+        # five drive shapes, each mirrored and shifted as k grows
         u = np.linspace(0.0, 1.0, T + 1)
-        poses = np.stack([-2.0 + (1.5 + 0.3 * k) * u, -1.0 + (0.2 * k) * u + 0.8 * u * u,
-                          (0.3 - 0.15 * k) * u], 1)
+        m, sgn = k % 5, 1.0 - 2.0 * ((k // 5) % 2)
+        poses = np.stack([-2.0 + (1.5 + 0.3 * m) * u + 0.01 * (k // 10),
+                          sgn * (-1.0 + (0.2 * m) * u + 0.8 * u * u),
+                          sgn * (0.3 - 0.15 * m) * u], 1)
         clouds = pre.compute(_room_ranges(poses, beams))
         states.append(ft.seed(spec, clouds.map(lambda x: x[0]), np.zeros(3, np.float32),
                               odom=poses[0].astype(np.float32)))
@@ -126,13 +149,18 @@ def _room_streams(card, K: int, T: int, beams: int, spec_kw: dict):
     return spec, states, cacheB, poseB, measC, odomS
 
 
-@pytest.mark.parametrize("gather,refresh,iterations", [("onehot", 2, 7), ("roll", 1, 6),
-                                                       ("onehot", 1, 6)])
-def test_stream_kernel_matches_plain_on_card(card, gather, refresh, iterations):
-    K, T = 5, 12
+@pytest.mark.parametrize("gather,refresh,iterations,K,cols", [
+    ("onehot", 2, 7, 5, 361), ("roll", 1, 6, 5, 361), ("onehot", 1, 6, 5, 361),
+    ("onehot", 2, 7, 133, 361), ("roll", 2, 6, 5, 100), ("onehot", 1, 6, 5, 1000)],
+    ids=["onehot-2", "roll-1", "onehot-1", "onehot-2-K133", "roll-2-B128", "onehot-1-B1024"])
+def test_stream_kernel_matches_plain_on_card(card, gather, refresh, iterations, K, cols):
+    """K different streams against the plain version over 12 frames: both
+    bands, corr_refresh 1 and 2, K = 133 (a second wave over the card's 132
+    SMs), B = 128, 384 and 1024; then stream_step (T = 1)."""
+    T = 12
     spec, states, cacheB, poseB, measC, odomS = _room_streams(
         card, K, T, 361, dict(iterations=iterations, window=128, stream_gather=gather,
-                              corr_refresh=refresh))
+                              corr_refresh=refresh), cols)
     before = sk.launches
     kc, kp, kpay = sk.track_streams_grid(spec, cacheB, poseB, measC, odomS)
     torch.cuda.synchronize()
@@ -161,6 +189,32 @@ def test_stream_kernel_matches_plain_on_card(card, gather, refresh, iterations):
             np.testing.assert_array_equal(kpay_n[:, 4:6, k], spay.cpu().numpy()[:, 4:6])
             np.testing.assert_allclose(kpay_n[:, 0:4, k], spay.cpu().numpy()[:, 0:4], atol=1e-6)
             np.testing.assert_allclose(kp[k, 0:8].cpu().numpy(), sp[0].cpu().numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("threads", [64, 256, 352, 768, 1024])
+def test_block_sums_are_bit_identical_across_warps_on_card(card, threads):
+    """The frame step's reduction (block_sum13 of csrc/frame_common.cuh),
+    which every thread of the frame kernels uses to solve for the pose: all
+    threads, in every warp, hold the same 13 totals bit for bit, from either
+    half of its double buffer; the totals agree with a float64 sum."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(threads)
+    terms = (rng.normal(size=(threads, 13))
+             * 10.0 ** rng.integers(-3, 4, (threads, 13))).astype(np.float32)
+    out = torch.empty(2, threads, 13, device=card)
+    err = _cuda.load("frame_kernel").frame_block_sum13(
+        torch.from_numpy(terms).to(card).data_ptr(), out.data_ptr(), threads,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    o = out.cpu().numpy()
+    bits = o.view(np.uint32)
+    assert (bits == bits[:, :1]).all(), "threads disagree on the totals"
+    # the second call sums twice the terms: exactly twice the totals
+    np.testing.assert_array_equal(o[1, 0], 2.0 * o[0, 0])
+    scale = np.abs(terms).astype(np.float64).sum(0)
+    assert (np.abs(o[0, 0] - terms.astype(np.float64).sum(0)) <= 1e-5 * scale).all()
 
 
 def test_nn_icp_kernel_matches_plain_on_card(card):

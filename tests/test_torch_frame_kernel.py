@@ -1,6 +1,7 @@
 """Frame kernel port (srrg2_laser_slam_2d_tpu_torch/ops/frame_kernel.py):
 the plain PyTorch version against the JAX Pallas kernel in interpret mode,
-from the same numpy inputs (seeded synthetic scans, B = 384)."""
+from the same numpy inputs (seeded synthetic scans, B = 384), in both
+measurement layouts (pre-z-buffered canvases and raw [T, F, 8] rows)."""
 
 import dataclasses
 
@@ -25,7 +26,9 @@ T_FRAMES = 8
 
 
 @pytest.fixture(scope="module")
-def chunk():
+def scans():
+    """Seeded synthetic scans through the JAX preprocessor: (spec, cloud
+    stack, odometry, state seeded from the first scan)."""
     jproj = JProj.make(cols=361, angle_min=-np.pi, angle_max=np.pi,
                        range_min=0.3, range_max=20.0)
     jspec = jpf.FrameSpec(projection=jproj, scene_capacity=1024, iterations=6,
@@ -38,9 +41,24 @@ def chunk():
     od = jnp.asarray(ds.robot_poses)
     st = jft.seed(jspec, jax.tree.map(lambda x: x[0], stack),
                   np.array(ds.config.sensor_in_robot, np.float32), odom=od[0])
+    return jspec, stack, od, st
+
+
+@pytest.fixture(scope="module")
+def chunk(scans):
+    jspec, stack, od, st = scans
     measC = jft.pack_measurement_canvas_batch(
         jspec, jax.tree.map(lambda x: x[1:], stack), od[1:])
     return jspec, np.asarray(st.cacheT), np.asarray(st.pose), np.asarray(measC)
+
+
+@pytest.fixture(scope="module")
+def raw_chunk(scans):
+    """The same frames in the raw [T, F, 8] layout (meas_as_canvas=False)."""
+    jspec, stack, od, st = scans
+    measF = jft.pack_measurement_batch(jax.tree.map(lambda x: x[1:], stack), od[1:])
+    return (dataclasses.replace(jspec, meas_as_canvas=False), np.asarray(st.cacheT),
+            np.asarray(st.pose), np.asarray(measF))
 
 
 def _tspec(jspec):
@@ -51,26 +69,73 @@ def _tspec(jspec):
         normal_cos=jspec.normal_cos, chi_threshold=jspec.chi_threshold,
         min_inliers=jspec.min_inliers, odom_weight=jspec.odom_weight,
         merge_threshold=jspec.merge_threshold, merge_shift=jspec.merge_shift,
-        window=jspec.window, meas_as_canvas=True,
+        window=jspec.window, meas_as_canvas=jspec.meas_as_canvas,
         split_distance=jspec.split_distance)
+
+
+def _run_both(jspec, cacheT, pose, meas):
+    """The Pallas kernel in interpret mode and the port's wrapper (its plain
+    version on CPU tensors) on the same inputs."""
+    jout = jpf.track_frames_grid(jspec, jnp.asarray(cacheT), jnp.asarray(pose),
+                                 jnp.asarray(meas), interpret=True)
+    tout = tfk.track_frames_grid(_tspec(jspec), state_from_numpy(cacheT),
+                                 state_from_numpy(pose), state_from_numpy(meas))
+    return [np.asarray(x) for x in jout], [x.numpy() for x in tout]
 
 
 @pytest.mark.parametrize("split_distance", [0.0, 0.15])
 def test_plain_track_frames_grid_matches_pallas(chunk, split_distance):
     jspec, cacheT, pose, measC = chunk
     jspec = dataclasses.replace(jspec, split_distance=split_distance)
-    jc, jp, jpay = jpf.track_frames_grid(
-        jspec, jnp.asarray(cacheT), jnp.asarray(pose), jnp.asarray(measC),
-        interpret=True)
-    tc, tp, tpay = tfk.track_frames_grid(
-        _tspec(jspec), state_from_numpy(cacheT), state_from_numpy(pose),
-        state_from_numpy(measC))
-    jpay, tpay = np.asarray(jpay), tpay.numpy()
+    _assert_frames_agree(*_run_both(jspec, cacheT, pose, measC), split_distance)
+
+
+@pytest.mark.parametrize("split_distance", [0.0, 0.15])
+def test_plain_track_frames_grid_matches_pallas_raw_layout(raw_chunk, split_distance):
+    """The raw layout: the kernel z-buffers the rows itself each frame and
+    reads the odometry from column 5; same tolerances as the canvas layout.
+    The reference is the Pallas kernel stepped frame by frame
+    (``frame_step``, interpret mode): on this chunk the JAX package's own
+    ``track_frames_grid`` parts from that chain at frame 4 (estimates 2e-5
+    apart, then merge decisions), in the order of XLA's sums."""
+    jspec, cacheT, pose, measF = raw_chunk
+    assert measF.ndim == 3 and measF.shape[2] == 8
+    jspec = dataclasses.replace(jspec, split_distance=split_distance)
+    jc, jp, pays = jnp.asarray(cacheT), jnp.asarray(pose), []
+    for t in range(measF.shape[0]):
+        jc, jp, pay = jpf.frame_step(jspec, jnp.asarray(measF[t]), jc, jp, interpret=True)
+        pays.append(np.asarray(pay))
+    tout = tfk.track_frames_grid(_tspec(jspec), state_from_numpy(cacheT),
+                                 state_from_numpy(pose), state_from_numpy(measF))
+    _assert_frames_agree((np.asarray(jc), np.asarray(jp), np.stack(pays)),
+                         [x.numpy() for x in tout], split_distance)
+
+
+def test_pack_measurement_matches_jax(scans):
+    """The raw rows the fast tracker packs for meas_as_canvas=False, one
+    frame and a stack."""
+    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as tft
+    from srrg2_laser_slam_2d_tpu_torch.utils.cloud import Cloud
+
+    _, stack, od, _ = scans
+    jc = jax.tree.map(lambda x: x[1], stack)
+    want = np.asarray(jft.pack_measurement(jc, od[1], True))
+    got = tft.pack_measurement(Cloud(*(torch.from_numpy(np.array(x)) for x in jc)),
+                               np.asarray(od[1]), True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want = np.asarray(jft.pack_measurement_batch(stack, od))
+    got = tft.pack_measurement_batch(Cloud(*(torch.from_numpy(np.array(x)) for x in stack)),
+                                     torch.from_numpy(np.array(od)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _assert_frames_agree(jout, tout, split_distance):
+    (jc, jp, jpay), (tc, tp, tpay) = jout, tout
     splits = jpay[:, 6, 7]
     if split_distance > 0:
         assert splits.sum() >= 1, "the case must split inside the chunk"
     np.testing.assert_array_equal(tpay[:, 6, 7], splits)
-    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-4)
+    np.testing.assert_allclose(tp, jp, atol=1e-4)
     # per-frame stats: T', X' and the scene count
     np.testing.assert_allclose(tpay[:, 6, 0:3], jpay[:, 6, 0:3], atol=1e-4)
     np.testing.assert_allclose(tpay[:, 6, 8:12], jpay[:, 6, 8:12], atol=1e-4)
@@ -81,7 +146,7 @@ def test_plain_track_frames_grid_matches_pallas(chunk, split_distance):
     live = kind_eq & (jpay[:, 5] > 0)
     for r in range(4):
         np.testing.assert_allclose(tpay[:, r][live], jpay[:, r][live], atol=1e-4)
-    np.testing.assert_allclose(tc.numpy()[0:4], np.asarray(jc)[0:4], atol=1e-4)
+    np.testing.assert_allclose(tc[0:4], jc[0:4], atol=1e-4)
 
 
 def test_atan2_poly_bit_equal():

@@ -91,10 +91,14 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         frame_kernel.track_frames_grid(spec, cache.to("meta"), pose.to("meta"),
                                        torch.zeros(2, 8, B, device="meta"))
-    with pytest.raises(NotImplementedError):
-        frame_kernel.track_frames_grid(
-            frame_kernel.FrameSpec(projection=spec.projection, meas_as_canvas=False),
-            cache, pose, torch.zeros(2, 8, B))
+    # the raw [T, F, 8] layout likewise
+    raw = frame_kernel.FrameSpec(projection=spec.projection, iterations=2,
+                                 meas_as_canvas=False)
+    _, _, pay = frame_kernel.track_frames_grid(raw, cache, pose, torch.zeros(2, 50, 8))
+    assert pay.shape == (2, 8, B) and frame_kernel.launches == before
+    with pytest.raises(ValueError):
+        frame_kernel.track_frames_grid(raw, cache.to("meta"), pose.to("meta"),
+                                       torch.zeros(2, 50, 8, device="meta"))
 
 
 def test_stream_wrapper_takes_the_plain_version_only_for_cpu_tensors():
