@@ -32,7 +32,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. the corridor run (2,871 frames, chunk 1024) through
      ``ChunkedSlamRunner`` under ``configurations/corridor.json`` and then
      ``configurations/corridor_lean.json``, each with the launch counters
-     set to 0 just before and read just after;
+     set to 0 just before and read just after; the largest NN-ICP launch of
+     the first run (one ``_detect_pool`` batch of the corridor's own scenes)
+     is replayed against the plain version and timed, its bound counted
+     from its own valid points; then the corridor once more with the loop
+     detector on the default ``projective`` backend (batched projective ICP,
+     no kernel), its gate, ATE and closures printed beside ``fused_nn``'s
+     (informational: the gate decides for ``corridor.json`` as it is);
   7. the throughput path through its entry points, the counters set to 0
      just before and read just after: ``stream_bench.measure_single``, then
      ``measure_streams`` at K = 8, 32 and 128 (10 chained calls, one
@@ -76,7 +82,8 @@ The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier paths is cut.
 ``--only message-kernels`` / ``--only message-path`` / ``--only multi`` run
 the build and part 5, part 8 or part 9 alone while developing, and print no
-result lines.
+result lines. ``bench/compare_csrc.py`` reuses the check functions to time
+every kernel call this script times against other CUDA sources.
 
 Tolerances. Kernel and plain version run the same float32 operations in
 the same order (the CUDA sources are built without multiply-add
@@ -130,6 +137,7 @@ the host's pace.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -198,6 +206,18 @@ def device_time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     assert busy, "the host was too slow to keep the queue full; use more products"
     return start.elapsed_time(end) / reps
+
+
+# every kernel timing of a run: label -> (method, function, repetitions), so
+# that bench/compare_csrc.py can time the same calls again from other sources
+KERNEL_TIMINGS: dict = {}
+
+
+def kernel_time_ms(label: str, method, fn, reps: int) -> float:
+    """``method(fn, reps)`` (``cuda_time_ms`` or ``device_time_ms``) of one
+    kernel's wrapper call, kept under ``label`` in ``KERNEL_TIMINGS``."""
+    KERNEL_TIMINGS[label] = (method, fn, reps)
+    return method(fn, reps)
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -278,12 +298,15 @@ def check_frame_kernel(msgs, slam_cfg, pcfg, device) -> dict:
     measF = ft.pack_measurement_batch(clouds.map(lambda x: x[1:RAW_FRAMES + 1]),
                                       torch.from_numpy(odoms[1:RAW_FRAMES + 1]).to(device))
     raw_err, raw_agree, _, raw_plain_ms = hold_frames("raw layout", raw, st, measF, False)
-    raw_ms = cuda_time_ms(lambda: fk.track_frames_grid(raw, st.cacheT, st.pose, measF), 5)
+    raw_ms = kernel_time_ms("frame_kernel raw layout", cuda_time_ms,
+                            lambda: fk.track_frames_grid(raw, st.cacheT, st.pose, measF), 5)
 
-    ms = cuda_time_ms(lambda: fk.track_frames_grid(spec, st.cacheT, st.pose, measC), 5)
+    ms = kernel_time_ms("frame_kernel", cuda_time_ms,
+                        lambda: fk.track_frames_grid(spec, st.cacheT, st.pose, measC), 5)
     # one frame a launch, as the per-message loop (route D) launches it
     m0 = measC[0].contiguous()
-    t1_ms = device_time_ms(lambda: fk.frame_step(spec, m0, st.cacheT, st.pose), 200)
+    t1_ms = kernel_time_ms("frame_kernel T=1", device_time_ms,
+                           lambda: fk.frame_step(spec, m0, st.cacheT, st.pose), 200)
     t1_paced_ms = cuda_time_ms(lambda: fk.frame_step(spec, m0, st.cacheT, st.pose), 200)
     # bound: what the function reads and writes, once each (canvas rows 0-5 and
     # the 4 odometry lanes in, 8 payload rows out, cache rows 0-5 and the pose
@@ -384,7 +407,8 @@ def check_nn_icp_kernel(det_cfg, device) -> dict:
     assert err <= 1e-3, f"NN-ICP kernel disagrees with its plain version: {err}"
     assert cnt_rel <= 0.01, f"NN-ICP counts differ by {cnt_rel}"
 
-    ms = cuda_time_ms(lambda: nk.fused_align_pairs(fixed, moving, initials, **kw), 10)
+    ms = kernel_time_ms("nn_icp_kernel", cuda_time_ms,
+                        lambda: nk.fused_align_pairs(fixed, moving, initials, **kw), 10)
     plain_ms = cuda_time_ms(plain, 2)
     # bound: every nearest-neighbour pass compares each valid moving point
     # with each valid fixed point (nk.FLOPS_PER_DISTANCE operations)
@@ -401,6 +425,95 @@ def check_nn_icp_kernel(det_cfg, device) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": f"J={J} F=M={n} iterations={acfg.max_iterations} "
                      f"refresh={det_cfg.fused_corr_refresh}"}
+
+
+class DetectionCapture:
+    """While the main path runs, keeps a copy of the inputs of the NN-ICP
+    wrapper's largest call (the most pairs; the first of equals): one
+    ``_detect_pool`` batch of the corridor's own scenes."""
+
+    def __enter__(self):
+        from srrg2_laser_slam_2d_tpu_torch.ops import nn_icp_kernel as nk
+
+        self.batch, self._nk, self._fn = None, nk, nk.fused_align_pairs
+
+        def wrapped(fixed, moving, initials, **kw):
+            if self.batch is None or fixed.xy.shape[0] > self.batch[0].xy.shape[0]:
+                self.batch = (fixed.map(torch.clone), moving.map(torch.clone),
+                              initials.clone(), dict(kw))
+            return self._fn(fixed, moving, initials, **kw)
+        nk.fused_align_pairs = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._nk.fused_align_pairs = self._fn
+
+
+def check_nn_icp_corridor(batch) -> dict:
+    """Kernel 2 on a detection batch of the corridor run, replayed: its
+    time, its bound from the batch's own valid points, and its agreement
+    with the plain version. Some corridor pairs are ill-conditioned (a
+    corridor leaves the translation along it nearly free): there the plain
+    version's OWN estimate moves by up to some 7e-2 when only the order of
+    its sums changes. So the plain version is also run with the moving
+    points in 16 other orders (reversed, 15 permutations from seed 0), and
+    each pair's spread is how far its plain estimate moves over them; the
+    kernel's sum order is one more such order. Held: the estimate of every
+    pair whose spread is within the 1e-3 limit, to max(1e-3, 2 x spread);
+    every pair's counts within 1 %; at least seven eighths of the pairs
+    held (a pair whose spread exceeds the limit bifurcates under
+    reordering, and its estimate is not held)."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import nn_icp_kernel as nk
+
+    fixed, moving, initials, kw = batch
+    J, F = fixed.xy.shape[:2]
+    M = moving.xy.shape[1]
+    k = nk.fused_align_pairs(fixed, moving, initials, **kw)
+    torch.cuda.synchronize()
+
+    def plain(mov=moving):
+        return nk._result(*nk.fused_align_pairs_plain(
+            nk.pack_fixed(fixed), nk.pack_moving(mov), initials, kw["iterations"],
+            float(kw["max_distance"]) ** 2, float(kw["normal_cos"]),
+            float(kw["chi_threshold"]), int(kw["min_inliers"]), int(kw["corr_refresh"])))
+    p = plain()
+    gen = torch.Generator().manual_seed(0)
+    orders = [torch.arange(M - 1, -1, -1)] + [torch.randperm(M, generator=gen) for _ in range(15)]
+    spread = torch.zeros(J, device=p.estimate.device)
+    for order in orders:
+        o = order.to(p.estimate.device)
+        q = plain(moving.map(lambda x: x[:, o]))
+        spread = torch.maximum(spread, (q.estimate - p.estimate).abs().amax(1))
+    pair_err = (k.estimate - p.estimate).abs().amax(1)
+    held = spread <= 1e-3
+    limit = torch.clamp(2 * spread, min=1e-3)
+    err = float(pair_err[held].max()) if bool(held.any()) else 0.0
+    excess = float((pair_err - limit)[held].max()) if bool(held.any()) else 0.0
+    cnt_rel = max(float(((getattr(k, f) - getattr(p, f)).abs()
+                         / getattr(p, f).clamp(min=1.0)).max())
+                  for f in ("num_inliers", "num_correspondences"))
+    ms = kernel_time_ms("nn_icp_kernel corridor batch", cuda_time_ms,
+                        lambda: nk.fused_align_pairs(fixed, moving, initials, **kw), 10)
+    plain_ms = cuda_time_ms(plain, 2)
+    fv, mv = fixed.valid.sum(1).double(), moving.valid.sum(1).double()
+    passes = nk.nn_passes(kw["iterations"], kw["corr_refresh"])
+    flops = passes * float((fv * mv).sum()) * nk.FLOPS_PER_DISTANCE
+    b_ms, b_by = bound(4 * (J * 6 * F + J * 5 * M + 3 * J + 7 * J), flops)
+    out = {"J": J, "F": F, "M": M, "mean_valid_fixed": float(fv.mean()),
+           "mean_valid_moving": float(mv.mean()), "max_abs_err": err,
+           "max_abs_err_all_pairs": float(pair_err.max()), "pairs_held": int(held.sum()),
+           "pairs_spread_above_1e-5": int((spread > 1e-5).sum()),
+           "max_plain_spread": float(spread.max()), "max_count_rel_diff": cnt_rel, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"nn-icp kernel on a corridor detection batch: {json.dumps(out)}; pairs whose plain "
+        "spread exceeds 1e-5 (pair, kernel err, plain spread): " + ", ".join(
+            f"({j}, {float(pair_err[j]):.3g}, {float(spread[j]):.3g})"
+            for j in torch.nonzero(spread > 1e-5).flatten().tolist()))
+    assert excess <= 0.0, ("NN-ICP kernel disagrees with its plain version beyond "
+                           f"max(1e-3, 2 x spread): by {excess} more")
+    assert cnt_rel <= 0.01, f"NN-ICP counts differ by {cnt_rel}"
+    assert int(held.sum()) >= J - J // 8, f"only {int(held.sum())} of {J} pairs held"
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -557,7 +670,8 @@ def check_stream_kernel(device) -> dict:
         f"T={STREAM_SHORT_T}: decisions equal, max abs err {single_err:.3g}")
     assert single_err <= 1e-6, single_err
 
-    ms = cuda_time_ms(lambda: sk.track_streams_grid(spec, cacheB, poseB, measC, odomS), 5)
+    ms = kernel_time_ms("stream_kernel", cuda_time_ms,
+                        lambda: sk.track_streams_grid(spec, cacheB, poseB, measC, odomS), 5)
     # bound: what the function reads and writes, once each (canvas rows 0-5
     # and the odometry in, all 8 payload rows out, cache rows 0-5 and the pose in,
     # 8 cache rows and the pose out); operations counted from the frame body,
@@ -643,7 +757,8 @@ def check_projector_kernel(proj, scene, X, S) -> dict:
     assert err == 0.0, f"projector kernel depths differ by {err}"
     n = xy.shape[0]
     B = pk.cols_padded(proj)
-    ms = device_time_ms(lambda: pk.project_local(proj, xy, valid), 100)
+    ms = kernel_time_ms("projector_kernel", device_time_ms,
+                        lambda: pk.project_local(proj, xy, valid), 100)
     paced_ms = cuda_time_ms(lambda: pk.project_local(proj, xy, valid), 200)
     plain_ms = cuda_time_ms(lambda: pk.project_local_plain(proj, xy, valid), 20)
     from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
@@ -670,7 +785,8 @@ def check_scene_kernel(proj, scene, X, S) -> dict:
     err = float((ko - po).abs().max())
     assert err <= 1e-6, f"scene kernel fields differ by {err}"
     n, B = scene.capacity, ko.shape[1]
-    ms = device_time_ms(lambda: sk.canvas(proj, scene, cam), 100)
+    ms = kernel_time_ms("scene_kernel", device_time_ms, lambda: sk.canvas(proj, scene, cam),
+                        100)
     paced_ms = cuda_time_ms(lambda: sk.canvas(proj, scene, cam), 200)
     plain_ms = cuda_time_ms(lambda: sk.canvas_plain(proj, scene, cam), 10)
     log(f"scene kernel: {int((p_rows >= 0).sum())} beams hit, rows and depths equal, "
@@ -724,8 +840,9 @@ def check_align_kernels(proj, acfg, scene, X, S, meas, T0) -> list[dict]:
     p = bak.fused_projective_align_banded_plain(proj, *fixed, *mov, T0, **kw)
     err = compare_align("banded align kernel", k, p)
     B = pak.align_spec(proj, 1, 0, 0, 0, 0, 0).cols_padded
-    ms = device_time_ms(
-        lambda: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
+    ms = kernel_time_ms(
+        "banded_align_kernel", device_time_ms,
+        lambda mov=mov: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
     paced_ms = cuda_time_ms(
         lambda: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
     plain_ms = cuda_time_ms(
@@ -744,7 +861,8 @@ def check_align_kernels(proj, acfg, scene, X, S, meas, T0) -> list[dict]:
     p = pak.fused_projective_align_plain(proj, *fixed, *mov, T0, **kw)
     err = compare_align("projective align kernel", k, p)
     B = sk.cols_padded(proj)
-    ms = device_time_ms(lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
+    ms = kernel_time_ms("projective_align_kernel", device_time_ms,
+                        lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
     paced_ms = cuda_time_ms(lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
     plain_ms = cuda_time_ms(
         lambda: pak.fused_projective_align_plain(proj, *fixed, *mov, T0, **kw), 3)
@@ -972,13 +1090,14 @@ def trajectory_rms_vs(runner, path: str) -> float:
     return float(np.sqrt(((p[:, :2] - ref_p[idx, :2]) ** 2).sum(1).mean()))
 
 
-def corridor_run(cfg_path: str, msgs, device) -> tuple[dict, object]:
+def corridor_run(cfg_path: str, msgs, device, capture=None) -> tuple[dict, object]:
     from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
     from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, nn_icp_kernel
 
     frame_kernel.launches = 0
     nn_icp_kernel.launches = 0
-    summary, runner = corridor_e2e.run_pass(cfg_path, CHUNK, None, device, msgs)
+    with capture or contextlib.nullcontext():
+        summary, runner = corridor_e2e.run_pass(cfg_path, CHUNK, None, device, msgs)
     torch.cuda.synchronize()
     summary["launches"] = {"frame_kernel": frame_kernel.launches,
                            "nn_icp_kernel": nn_icp_kernel.launches}
@@ -991,6 +1110,35 @@ def corridor_run(cfg_path: str, msgs, device) -> tuple[dict, object]:
     assert corridor_e2e.closures_accepted(summary), "no loop closure was accepted"
     assert summary["launches"]["frame_kernel"] > 0 and summary["launches"]["nn_icp_kernel"] > 0
     return summary, runner
+
+
+def corridor_projective_run(msgs, device, fused: dict) -> dict:
+    """The corridor under ``corridor.json`` with the loop detector on the
+    default ``projective`` backend (closure pairs aligned by batched
+    projective ICP in plain PyTorch, no kernel), printed beside the
+    ``fused_nn`` run's gate, ATE and closures. Informational: the gate
+    decides for ``corridor.json`` as it is."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+
+    with open("configurations/corridor.json") as f:
+        doc = json.load(f)
+    for obj in doc["objects"]:
+        if obj.get("#class") == "LoopDetectorConfig":
+            obj["backend"] = "projective"
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "corridor_projective.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    summary, runner = corridor_e2e.run_pass(path, CHUNK, None, device, msgs)
+    torch.cuda.synchronize()
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    assert summary["frames"] == 2871 and np.isfinite(traj).all()
+    keys = ("gate_verdict", "ate_rmse_translation_m", "closures", "graph_variables", "wall_s")
+    log("corridor, detector backend projective against fused_nn: "
+        + json.dumps({"projective": {k: summary[k] for k in keys},
+                      "fused_nn": {k: fused[k] for k in keys},
+                      "projective_phases": summary["phases"]}))
+    return summary
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1143,7 +1291,8 @@ def check_multicue_kernel(msgs, device) -> dict:
     assert float(p.num_inliers) >= 200, "the check needs a real alignment"
     assert err <= 1e-5, f"multi-cue aligner: estimates differ by {err}"
     assert count_diff <= 2 and chi_rel <= 1e-3
-    ms = device_time_ms(lambda: mak.fused_projective_align_multi(*args, **kw), 100)
+    ms = kernel_time_ms("multicue_align_kernel", device_time_ms,
+                        lambda: mak.fused_projective_align_multi(*args, **kw), 100)
     paced_ms = cuda_time_ms(lambda: mak.fused_projective_align_multi(*args, **kw), 100)
     plain_ms = cuda_time_ms(lambda: mak.fused_projective_align_multi_plain(*args, **kw), 3)
     passes = a.max_iterations + 1
@@ -1288,7 +1437,8 @@ def check_probes(msgs, device) -> list[dict]:
     assert err <= 1e-6 and fraction >= 0.995
     B = bzk.cols_padded(proj)
     g0 = geos[0]
-    ms = device_time_ms(lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
+    ms = kernel_time_ms("beam_zbuffer_kernel", device_time_ms,
+                        lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
     paced_ms = cuda_time_ms(lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
     plain_ms = cuda_time_ms(lambda: bzk.beam_zbuffer_probe_plain(proj, g0), 20)
     # bytes: the 6 rows of geoT the kernel reads (rows 6-7 are never read)
@@ -1313,8 +1463,10 @@ def check_probes(msgs, device) -> list[dict]:
         for form in exp_gather.FORMS:
             out = exp_gather.gather_probe(canvas, idx, 10, form)
             assert torch.equal(out, ref), (k, form)
-            times[(form, k)] = device_time_ms(
-                lambda: exp_gather.gather_probe(canvas, idx, 10, form), 100)
+            times[(form, k)] = kernel_time_ms(
+                f"gather_probe_kernel {form} K={k}", device_time_ms,
+                lambda canvas=canvas, idx=idx, form=form: exp_gather.gather_probe(
+                    canvas, idx, 10, form), 100)
         times[("plain", k)] = cuda_time_ms(lambda: exp_gather.gather_probe_plain(canvas, idx, 10),
                                            20)
     assert all(r["err"] <= 1e-5 for r in runs), runs
@@ -1395,8 +1547,11 @@ def main() -> int:
                check_nn_icp_kernel(slam_cfg.detector, device), stream_entry,
                *check_message_kernels(msgs, slam_cfg, pcfg, device)]
 
-    main_run, _ = corridor_run("configurations/corridor.json", msgs, device)
+    capture = DetectionCapture()
+    main_run, _ = corridor_run("configurations/corridor.json", msgs, device, capture)
     lean_run, _ = corridor_run("configurations/corridor_lean.json", msgs, device)
+    kernels[1]["corridor_batch"] = check_nn_icp_corridor(capture.batch)
+    projective_run = corridor_projective_run(msgs, device, main_run)
     throughput = headline_run(device)
     one_map = routes_in_one_map(slam_cfg, pcfg, msgs, device)
     routes = message_routes_run(slam_cfg, pcfg, msgs, device)
@@ -1420,7 +1575,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "corridor": main_run,
-                   "corridor_lean": lean_run, "throughput": throughput,
+                   "corridor_lean": lean_run, "corridor_projective": projective_run,
+                   "throughput": throughput,
                    "per_message": {"route_d": route_d, "routes": routes,
                                    "one_local_map": one_map},
                    "multicue_bench": multi["multicue_bench"], "multi_loop": multi["multi_loop"],

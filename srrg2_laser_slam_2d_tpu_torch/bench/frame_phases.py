@@ -5,26 +5,25 @@ single frames (T = 1, as the per-message loop launches it), kernel 3
 frames broadcast to K streams).
 
     python -m srrg2_laser_slam_2d_tpu_torch.bench.frame_phases [--out FILE]
-        [--csrc DIR] [--phase-csrc DIR] [--sweep 1,2,3] [--tag NAME]
+        [--sweep 1,2,3]
 
-Each kernel is built three ways from the sources in ``--csrc`` (default:
-the package's ``csrc``), into ``build/torch_kernels/phases/<tag>/``, and
-called through its C entry point with the wrapper's arguments:
+Each kernel is built three ways from the package's ``csrc``, into
+``build/torch_kernels/phases/``, and called through its C entry point with
+the wrapper's arguments:
   - the default build (the wrappers' flags): milliseconds per launch, CUDA
     events, mean of 5 after a warm-up (kernel 3 at K = 8, 32, 128; kernel 1
     per chunk); kernel 1's T = 1 launch as device time (the queue kept full
     behind large matrix products) and at the host's pace;
-  - with ``-DFRAME_PHASE_TIMING`` (sources from ``--phase-csrc``, default
-    ``--csrc``): thread 0 of block 0 stamps ``clock64()`` at the phase
-    boundaries of the frame step; SM cycles per frame for each phase, and
+  - with ``-DFRAME_PHASE_TIMING``: thread 0 of block 0 stamps ``clock64()``
+    at the phase boundaries of the frame step; SM cycles per frame for each phase, and
     microseconds at the clock those cycles and the build's own launch time
     imply;
   - with ``-DFRAME_COUNT_BARRIERS`` as well: block barriers per frame.
-Sources without the phase stamps give the times alone.
 ``--sweep`` builds the three ways once per beams-per-thread setting
 (``-DFRAME_BPT=n``) and reports each; the kernel's outputs under each
 setting are held against the default build's (decisions, poses).
-Prints one JSON object and writes it to ``--out``.
+Prints one JSON object and writes it to ``--out``. Times against other
+sources (an older commit's) are ``bench/compare_csrc.py``'s.
 """
 
 from __future__ import annotations
@@ -51,7 +50,7 @@ REPS = 5
 ENTRY = {"frame_kernel": "frame_track_grid", "stream_kernel": "stream_track_grid"}
 
 
-def build(csrc: Path, phase_csrc: Path, tag: str, bpts) -> dict:
+def build(bpts) -> dict:
     """Every variant's library path: {(bpt, kind): {kernel: path}}, kind
     one of "default", "timing", "count"; bpt None = the source's own."""
     flags = {"default": (), "timing": ("-DFRAME_PHASE_TIMING",),
@@ -59,12 +58,11 @@ def build(csrc: Path, phase_csrc: Path, tag: str, bpts) -> dict:
     jobs, paths = [], {}
     for bpt in bpts:
         for kind, extra in flags.items():
-            src = csrc if kind == "default" else phase_csrc
-            sub = f"{tag}/{kind}" + ("" if bpt is None else f"_bpt{bpt}")
+            sub = kind + ("" if bpt is None else f"_bpt{bpt}")
             extra = extra + (() if bpt is None else (f"-DFRAME_BPT={bpt}",))
             for name in ENTRY:
                 lib = _cuda.BUILD_DIR / "phases" / sub / f"lib{name}.so"
-                jobs.append((f"{sub}/{name}", src / f"{name}.cu", lib, extra))
+                jobs.append((f"{sub}/{name}", _cuda.CSRC / f"{name}.cu", lib, extra))
                 paths.setdefault((bpt, kind), {})[name] = lib
     logs = _cuda.compile_all(jobs)
     regs = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
@@ -215,15 +213,14 @@ def measure(libs: dict, inp: Inputs) -> dict:
            "stream_kernel": {"ms": {k: events_ms(launcher(libs["default"], inp,
                                                           "stream_kernel", k))
                                     for k in KS}}}
-    if all(hasattr(lib, "frame_phase_cycles") for lib in libs["timing"].values()):
-        out["frame_kernel"]["phases"] = phase_table(libs["timing"], inp, "frame_kernel",
-                                                    CHUNK, CHUNK)
-        out["stream_kernel"]["phases"] = phase_table(libs["timing"], inp, "stream_kernel", 32,
-                                                     STREAM_FRAMES - 1)
-        out["frame_kernel"]["barriers_per_frame"] = barriers(libs["count"], inp,
-                                                             "frame_kernel", CHUNK, CHUNK)
-        out["stream_kernel"]["barriers_per_frame"] = barriers(
-            libs["count"], inp, "stream_kernel", 32, STREAM_FRAMES - 1)
+    out["frame_kernel"]["phases"] = phase_table(libs["timing"], inp, "frame_kernel", CHUNK,
+                                                CHUNK)
+    out["stream_kernel"]["phases"] = phase_table(libs["timing"], inp, "stream_kernel", 32,
+                                                 STREAM_FRAMES - 1)
+    out["frame_kernel"]["barriers_per_frame"] = barriers(libs["count"], inp, "frame_kernel",
+                                                         CHUNK, CHUNK)
+    out["stream_kernel"]["barriers_per_frame"] = barriers(libs["count"], inp, "stream_kernel",
+                                                          32, STREAM_FRAMES - 1)
     return out
 
 
@@ -246,20 +243,15 @@ def agreement(libs: dict, ref: dict, inp: Inputs) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--csrc", type=Path, default=_cuda.CSRC)
-    ap.add_argument("--phase-csrc", type=Path, default=None)
     ap.add_argument("--sweep", default="", help="beams per thread to sweep, e.g. 1,2,3")
-    ap.add_argument("--tag", default="this")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     device = resolve_device(None)
     bpts = [None] + [int(s) for s in args.sweep.split(",") if s]
-    paths, regs = build(args.csrc.resolve(), (args.phase_csrc or args.csrc).resolve(),
-                        args.tag, bpts)
+    paths, regs = build(bpts)
     inp = Inputs(device)
-    result = {"card": card_description(device), "csrc": str(args.csrc), "tag": args.tag,
-              "ptxas": regs, "variants": {}}
+    result = {"card": card_description(device), "ptxas": regs, "variants": {}}
     ref = None
     for bpt in bpts:
         libs = {kind: load(paths[(bpt, kind)]) for kind in ("default", "timing", "count")}

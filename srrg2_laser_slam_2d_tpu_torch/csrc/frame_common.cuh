@@ -507,13 +507,9 @@ __device__ __forceinline__ void butterfly_level(float* x, int lane, int o) {
   }
 }
 
-// Block sums of the 13 terms with ONE barrier; every thread gets the totals.
-// part: shared [2][32][16]; `buf` alternates between consecutive calls, so a
-// warp that runs ahead writes the other half while slower warps still read
-// this one. Every warp adds all warp partials itself in the same order, so
-// all threads hold the same totals bit for bit.
-__device__ __forceinline__ void block_sum13(const float* v, float* part, int buf, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+// The warp's sums of the 13 terms v by a transposed butterfly (16
+// shuffles): lanes 2k and 2k + 1 return the warp's sum k.
+__device__ __forceinline__ float warp_sums13(const float* v, int lane) {
   float x[16];
 #pragma unroll
   for (int k = 0; k < 16; ++k) x[k] = k < kTerms ? v[k] : 0.0f;
@@ -521,9 +517,19 @@ __device__ __forceinline__ void block_sum13(const float* v, float* part, int buf
   butterfly_level<4>(x, lane, 8);
   butterfly_level<2>(x, lane, 4);
   butterfly_level<1>(x, lane, 2);
-  x[0] = x[0] + __shfl_xor_sync(kFull, x[0], 1);   // lanes 2k and 2k + 1: the warp's sum k
+  return x[0] + __shfl_xor_sync(kFull, x[0], 1);
+}
+
+// Block sums of the 13 terms with ONE barrier; every thread gets the totals.
+// part: shared [2][32][16]; `buf` alternates between consecutive calls, so a
+// warp that runs ahead writes the other half while slower warps still read
+// this one. Every warp adds all warp partials itself in the same order, so
+// all threads hold the same totals bit for bit.
+__device__ __forceinline__ void block_sum13(const float* v, float* part, int buf, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const float x0 = warp_sums13(v, lane);
   float* pb = part + buf * 32 * 16;
-  if (!(lane & 1) && (lane >> 1) < kTerms) pb[warp * 16 + (lane >> 1)] = x[0];
+  if (!(lane & 1) && (lane >> 1) < kTerms) pb[warp * 16 + (lane >> 1)] = x0;
   FRAME_SYNC();
   const int k = lane & 15;
   float acc = 0.0f;
@@ -532,6 +538,33 @@ __device__ __forceinline__ void block_sum13(const float* v, float* part, int buf
   acc = acc + __shfl_xor_sync(kFull, acc, 16);
 #pragma unroll
   for (int t = 0; t < kTerms; ++t) out[t] = __shfl_sync(kFull, acc, t);
+}
+
+// Ballot scan over rows [0, n) in order: visit(i, pos, flagged) is called
+// for every row i, pos being the number of flagged rows before it (where a
+// packed copy of a flagged row goes). Returns the number of flagged rows.
+// All threads call; two barriers per blockDim.x rows; s_scan: shared [32].
+template <class Flag, class Visit>
+__device__ int block_pack(int n, Flag flag, Visit visit, int* s_scan) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int base = 0;
+  for (int c0 = 0; c0 < n; c0 += blockDim.x) {
+    const int i = c0 + threadIdx.x;
+    const bool f = i < n && flag(i);
+    const unsigned ball = __ballot_sync(kFull, f);
+    if (lane == 0) s_scan[warp] = __popc(ball);
+    __syncthreads();
+    int before = base, total = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int cnt = s_scan[w];
+      if (w < warp) before += cnt;
+      total += cnt;
+    }
+    if (i < n) visit(i, before + __popc(ball & ((1u << lane) - 1u)), f);
+    base += total;
+    __syncthreads();   // s_scan is rewritten by the next rows
+  }
+  return base;
 }
 
 // Inclusive scan over the beams in beam order (beam b = thread + j * threads)

@@ -5,8 +5,9 @@ A chunk of frames goes through the frame kernel in ONE launch with the
 local-map split decided in the kernel (``FrameSpec.split_distance``); the
 host reads the [T, 12] stats once per chunk and from them rebuilds the
 pose graph, materializes the scenes of every local map the chunk touched,
-aligns every closure candidate of the maps born in the chunk through the
-NN-ICP kernel (one launch per ``detect_batch`` pairs), votes, fuses the
+aligns every closure candidate of the maps born in the chunk (through the
+NN-ICP kernel, one launch per ``detect_batch`` pairs, on the ``fused_nn``
+backend; through batched projective ICP on ``projective``), votes, fuses the
 accepted closures' scenes, solves the graph and relocalizes.
 
 Scenes of all local maps live in one device pool [M, cap, ...]; the pose
@@ -47,10 +48,6 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
                  sensor_in_robot=None, chunk: int = 256, device=None):
         if cfg.cue_extrinsics is not None:
             raise ValueError("chunked loop is single-cue; use GraphSLAM2D")
-        if cfg.enable_loop_closure and cfg.detector.backend != "fused_nn":
-            raise NotImplementedError(
-                f"loop detector backend {cfg.detector.backend!r} is not ported; "
-                "use 'fused_nn'")
         cfg = dataclasses.replace(cfg, use_fast_tracker=True, fast_canvas_meas=True)
         super().__init__(cfg, sensor_in_robot, device)
         self.chunk = chunk
@@ -211,8 +208,9 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
 
     def _detect_pool(self, queries: list[int]) -> list[lc.ClosureCandidate]:
         """Closure detection for the query maps: candidate selection on the
-        host, then the NN-ICP kernel over pool scenes, ``detect_batch`` pairs
-        per launch, and one read of all results."""
+        host, then the pool scenes aligned ``detect_batch`` pairs at a time
+        (the NN-ICP kernel on the ``fused_nn`` backend, one batched projective
+        ICP on ``projective``), and one read of all results."""
         dcfg = self.detector.cfg
         poses = self._poses_host
         jobs = self.detector.selector.select_many(queries, poses, self.n_maps,
@@ -232,13 +230,18 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
             qi = torch.as_tensor([q for q, _ in batch], device=self.device)
             fixed = self._pool.map(lambda x: x[fi, :det_cap])
             moving = self._pool.map(lambda x: x[qi, :det_cap])
-            initials = np.stack([lc.relative_np(poses[m], poses[q]) for q, m in batch])
-            r = nn_icp_kernel.fused_align_pairs(
-                fixed, moving, torch.from_numpy(initials).to(self.device),
-                iterations=acfg.max_iterations, max_distance=acfg.point_distance,
-                normal_cos=acfg.normal_cos, chi_threshold=acfg.chi_threshold,
-                min_inliers=acfg.min_num_inliers, corr_refresh=dcfg.fused_corr_refresh)
-            packed.append(torch.cat([r.num_inliers[:, None], r.num_correspondences[:, None],
+            initials = torch.from_numpy(np.stack(
+                [lc.relative_np(poses[m], poses[q]) for q, m in batch])).to(self.device)
+            if dcfg.backend == "fused_nn":
+                r = nn_icp_kernel.fused_align_pairs(
+                    fixed, moving, initials,
+                    iterations=acfg.max_iterations, max_distance=acfg.point_distance,
+                    normal_cos=acfg.normal_cos, chi_threshold=acfg.chi_threshold,
+                    min_inliers=acfg.min_num_inliers, corr_refresh=dcfg.fused_corr_refresh)
+            else:
+                r = lc._batch_align_pairs(acfg, self.detector.proj, fixed, moving, initials)
+            packed.append(torch.cat([r.num_inliers[:, None].to(torch.float32),
+                                     r.num_correspondences[:, None].to(torch.float32),
                                      r.chi_inliers[:, None], r.estimate], dim=1))
         res = torch.cat(packed).cpu().numpy()
         return lc.gate_candidates(dcfg, jobs, res[:, 0], res[:, 1], res[:, 2], res[:, 3:6])

@@ -2,9 +2,11 @@
 closure validator and closure-time map fusion. Counterpart of
 ``srrg2_laser_slam_2d_tpu/models/loop_closure.py``. The chunked loop aligns
 its candidates through the NN-ICP kernel
-(``ops/nn_icp_kernel.fused_align_pairs``, the ``fused_nn`` backend); the
-per-message loop's ``BruteForceLoopDetector.detect`` aligns the query scene
-against all its candidates in one batched projective ICP (``_batch_align``).
+(``ops/nn_icp_kernel.fused_align_pairs``, the ``fused_nn`` backend) or, on
+the default ``projective`` backend, through one batched projective ICP over
+all its pairs (``_batch_align_pairs``); the per-message loop's
+``BruteForceLoopDetector.detect`` aligns the query scene against all its
+candidates in one batched projective ICP (``_batch_align``).
 """
 
 from __future__ import annotations
@@ -105,6 +107,15 @@ def _batch_align(acfg: icp.AlignerConfig, proj: PolarProjection, fixed_batch: Cl
     """Align the query scene ``moving`` [N, ...] against K candidate scenes
     ``fixed_batch`` [K, N, ...] at once (``icp.align`` over a batch)."""
     return icp.align(acfg, proj, fixed_batch, moving, initials)
+
+
+def _batch_align_pairs(acfg: icp.AlignerConfig, proj: PolarProjection, fixed_batch: Cloud,
+                       moving_batch: Cloud, initials: torch.Tensor) -> icp.AlignResult:
+    """Align J independent (query, candidate) scene pairs at once: the query
+    scenes ``moving_batch`` [J, N, ...] against the candidate scenes
+    ``fixed_batch`` [J, N, ...] from ``initials`` [J, 3] (the chunked loop's
+    ``projective`` detector backend)."""
+    return icp.align(acfg, proj, fixed_batch, moving_batch, initials)
 
 
 def graph_distances(adjacency: list[set[int]], start: int) -> dict[int, int]:
@@ -231,10 +242,10 @@ def gate_candidates(cfg: LoopDetectorConfig, jobs: list[tuple[int, int]],
 
 
 class BruteForceLoopDetector:
-    """The detector configuration, its candidate selector and the
-    per-message ``detect``. The chunked loop aligns the selected pairs
-    itself (one NN-ICP launch per batch of pairs) and gates them with
-    ``gate_candidates``."""
+    """The detector configuration, its candidate selector, the per-message
+    ``detect`` and its many-query form ``detect_many``. The chunked loop
+    aligns the selected pairs itself (in batches of pairs) and gates them
+    with ``gate_candidates``."""
 
     def __init__(self, cfg: LoopDetectorConfig, proj: PolarProjection):
         self.cfg = cfg
@@ -262,6 +273,41 @@ class BruteForceLoopDetector:
                             res.chi_inliers[:, None], res.estimate], dim=1).cpu().numpy()
         return gate_candidates(self.cfg, [(query, m) for m in cands], packed[:, 0],
                                packed[:, 1], packed[:, 2], packed[:, 3:6])
+
+    def detect_many(self, queries: list[int], scenes: list[Cloud], poses: np.ndarray,
+                    n_maps: int, adjacency: list[set[int]], pad_to: int = 8,
+                    capacity: int | None = None) -> list[ClosureCandidate]:
+        """``detect`` for several query maps as one batched alignment and one
+        read of the results. The jobs are padded with copies of the first to
+        a power of two (at least ``pad_to``); ``capacity`` aligns at that
+        point capacity instead of the scenes' largest (larger scenes are cut
+        to their first ``capacity`` rows, smaller ones padded)."""
+        jobs = [(q, m) for q in queries
+                for m in self.selector.select(q, poses, n_maps, adjacency)]
+        if not jobs:
+            return []
+        J = pad_to
+        while J < len(jobs):
+            J *= 2
+        padded = jobs + [jobs[0]] * (J - len(jobs))
+        cap = capacity or max(max(scenes[m].capacity for _, m in padded),
+                              max(scenes[q].capacity for q, _ in padded))
+
+        def at_cap(c: Cloud) -> Cloud:
+            if c.capacity >= cap:
+                return c.map(lambda x: x[:cap])
+            return cloud_op.repad(c, cap)
+
+        fixed = cloud_op.stack([at_cap(scenes[m]) for _, m in padded])
+        moving = cloud_op.stack([at_cap(scenes[q]) for q, _ in padded])
+        initials = np.stack([relative_np(poses[m], poses[q]) for q, m in padded])
+        res = _batch_align_pairs(self.cfg.aligner, self.proj, fixed, moving,
+                                 torch.from_numpy(initials).to(fixed.xy.device))
+        packed = torch.cat([res.num_inliers[:, None].to(torch.float32),
+                            res.num_correspondences[:, None].to(torch.float32),
+                            res.chi_inliers[:, None], res.estimate], dim=1).cpu().numpy()
+        return gate_candidates(self.cfg, jobs, packed[:, 0], packed[:, 1], packed[:, 2],
+                               packed[:, 3:6])
 
 
 class ClosureValidator:

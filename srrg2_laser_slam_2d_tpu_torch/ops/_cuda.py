@@ -47,7 +47,9 @@ _SIGNATURES = {
     # fixed (xy, normal, valid, cues, rows), moving (xy, normal, valid, rows), t0,
     # prior, extrinsics, three outputs, params, damping, min_corr, stream
     "multicue_align_kernel": {"multicue_align": [_VOID] * 3 + [_INT] * 2 + [_VOID] * 3 + [_INT]
-                              + [_VOID] * 7 + [_FLOAT] * 2 + [_VOID]},
+                              + [_VOID] * 7 + [_FLOAT] * 2 + [_VOID],
+                              # terms, cues, out, threads, stream (the reduction alone)
+                              "multicue_block_sums_test": [_VOID, _INT, _VOID, _INT, _VOID]},
     # geoT, out, B, cols, f, c, range_min, range_max, max_shift, stream
     "beam_zbuffer_kernel": {"beam_zbuffer": [_VOID] * 2 + [_INT] * 2 + [_FLOAT] * 4
                             + [_INT, _VOID]},
@@ -121,6 +123,8 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in _SIGNATURES[name].items():
+        if not hasattr(lib, fn):   # an older source without a test entry point
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     _LIBS[name] = lib

@@ -36,6 +36,7 @@ from .projector_kernel import cols_padded
 # launches of the CUDA kernel (reset by callers that count a run)
 launches = 0
 MAX_CUES = 4
+MAX_MOVING = 4096   # moving rows the kernel packs in shared memory
 
 
 def flops_per_pass(n_cues: int, n_moving: int) -> int:
@@ -170,6 +171,8 @@ def fused_projective_align_multi(proj: PolarProjection, fixed_xy, fixed_normal, 
     B = cols_padded(proj)
     if B > 1024:
         raise ValueError(f"{proj.cols} beams: the kernel holds at most 1024")
+    if mxy.shape[0] > MAX_MOVING:
+        raise ValueError(f"{mxy.shape[0]} moving rows: the kernel holds at most {MAX_MOVING}")
     spec = align_spec(proj, iterations, point_distance, normal_cos, chi_threshold,
                       min_inliers, odom_weight)
     params = _params(spec, 1)

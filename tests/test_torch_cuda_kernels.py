@@ -217,9 +217,37 @@ def test_block_sums_are_bit_identical_across_warps_on_card(card, threads):
     assert (np.abs(o[0, 0] - terms.astype(np.float64).sum(0)) <= 1e-5 * scale).all()
 
 
-def test_nn_icp_kernel_matches_plain_on_card(card):
-    rng = np.random.default_rng(3)
-    J, n = 8, 1000          # F = 1000 is not a multiple of the 512-point tile
+@pytest.mark.parametrize("cues,threads", [(1, 768), (2, 768), (2, 512), (4, 1024)])
+def test_multicue_block_sums_are_bit_identical_across_warps_on_card(card, cues, threads):
+    """The multi-cue aligner's reduction (csrc/multicue_align_kernel.cu:
+    each cue's 13 sums per warp by warp_sums13, then multicue_totals, which
+    the kernel's warp 0 calls): every warp that takes the totals gets the
+    same 13 C totals bit for bit, twice over; they agree with a float64
+    sum."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(cues * threads)
+    terms = (rng.normal(size=(threads, cues, 13))
+             * 10.0 ** rng.integers(-3, 4, (threads, cues, 13))).astype(np.float32)
+    out = torch.empty(2, threads, cues, 13, device=card)
+    err = _cuda.load("multicue_align_kernel").multicue_block_sums_test(
+        torch.from_numpy(terms).to(card).data_ptr(), cues, out.data_ptr(), threads,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    o = out.cpu().numpy()
+    bits = o.view(np.uint32)
+    assert (bits == bits[:, :1]).all(), "threads disagree on the totals"
+    np.testing.assert_array_equal(o[1, 0], 2.0 * o[0, 0])
+    scale = np.abs(terms).astype(np.float64).sum(0)
+    assert (np.abs(o[0, 0] - terms.astype(np.float64).sum(0)) <= 1e-5 * scale).all()
+
+
+def _nn_pairs(rng, J: int, F: int, M: int):
+    """J (fixed, moving) pairs of F and M points on six random walls; the
+    moving points are the walls seen from a pose near the identity, with
+    noise (the first min(F, M) wall points are shared)."""
+    n = max(F, M)
     a = rng.uniform(-6, 6, (J, 6, 2))
     b = a + rng.uniform(-3, 3, (J, 6, 2))
     seg = rng.integers(0, 6, (J, n))
@@ -234,28 +262,68 @@ def test_nn_icp_kernel_matches_plain_on_card(card):
     t = rng.uniform(-0.3, 0.3, (J, 2))
     mxy = np.einsum("jni,jik->jnk", p - t[:, None], R) + rng.normal(0, 0.005, p.shape)
     mn = np.einsum("jni,jik->jnk", nrm, R)
+    truth = np.concatenate([t, th[:, None]], 1)
+    return p[:, :F], nrm[:, :F], mxy[:, :M], mn[:, :M], truth
+
+
+def _nn_case(rng, case: str):
+    """The fixed and moving clouds of a case and its pair count."""
+    J = 8
+    if case == "ragged":            # F = 1000 is not a multiple of the 512-point tile
+        F, M = 1000, 1000
+    elif case == "ragged-small":    # few moving points: many thread groups split F
+        F, M = 700, 300
+    else:
+        F, M = (1536, 900) if case == "invalid-tile" else (1024, 1024)
+    fxy, fn, mxy, mn, truth = _nn_pairs(rng, J, F, M)
+    fvalid = rng.uniform(size=(J, F)) > 0.05
+    mvalid = rng.uniform(size=(J, M)) > 0.05
+    if case == "invalid-tile":
+        fvalid[:, 512:1024] = False
+        fxy[:, 512:1024] = rng.uniform(-50, 50, (J, 512, 2))   # never compared
+    if case == "ties":
+        # fixed points 256-383 repeat points 0-127 exactly (one tile, split
+        # across thread groups: their distances tie) with normals turned by
+        # up to 0.02 rad (the tie averages them); points 512-639 repeat them
+        # in the next tile (a later tile's equal distance loses)
+        fvalid[:] = True
+        fxy[:, 256:384] = fxy[:, 0:128]
+        fxy[:, 512:640] = fxy[:, 0:128]
+        rot = rng.uniform(-0.02, 0.02, (J, 128))
+        c, s = np.cos(rot), np.sin(rot)
+        n0 = fn[:, 0:128]
+        fn[:, 256:384] = np.stack([c * n0[..., 0] - s * n0[..., 1],
+                                   s * n0[..., 0] + c * n0[..., 1]], -1)
+    return J, fxy, fn, fvalid, mxy, mn, mvalid, truth
+
+
+@pytest.mark.parametrize("case", ["ragged", "ragged-small", "invalid-tile", "ties"])
+def test_nn_icp_kernel_matches_plain_on_card(card, case):
+    rng = np.random.default_rng(3)
+    J, fxy, fn, fvalid, mxy, mn, mvalid, truth = _nn_case(rng, case)
+    F = fxy.shape[1]
 
     def cloud(xy, nm, v):
         return Cloud(torch.as_tensor(xy, dtype=torch.float32, device=card),
                      torch.as_tensor(nm, dtype=torch.float32, device=card),
                      torch.as_tensor(v, device=card))
-    fixed = cloud(p, nrm, rng.uniform(size=(J, n)) > 0.05)
-    moving = cloud(mxy, mn, rng.uniform(size=(J, n)) > 0.05)
+    fixed = cloud(fxy, fn, fvalid)
+    moving = cloud(mxy, mn, mvalid)
     init = torch.zeros(J, 3, device=card)
     kw = dict(iterations=30, max_distance=1.414, normal_cos=0.8, chi_threshold=0.05,
               min_inliers=10, corr_refresh=3)
     before = nk.launches
     got = nk.fused_align_pairs(fixed, moving, init, **kw)
     assert nk.launches == before + 1
-    fixedP = torch.nn.functional.pad(nk.pack_fixed(fixed), (0, 24))   # F -> 1024
-    fixedP[:, 5, n:] = 1e30                                           # padding never matches
+    pad = -F % nk.TILE_F
+    fixedP = torch.nn.functional.pad(nk.pack_fixed(fixed), (0, pad))   # F -> tiles
+    fixedP[:, 5, F:] = 1e30                                           # padding never matches
     est, stats = nk.fused_align_pairs_plain(
         fixedP, nk.pack_moving(moving), init, 30, 1.414 ** 2, 0.8, 0.05, 10, 3)
     np.testing.assert_allclose(got.estimate.cpu().numpy(), est.cpu().numpy(), atol=1e-4)
     ref = stats.cpu().numpy()[:, 1:3]
     mine = np.stack([got.num_inliers.cpu().numpy(), got.num_correspondences.cpu().numpy()], 1)
     assert np.all(np.abs(mine - ref) <= 0.01 * np.maximum(ref, 1.0))
-    truth = np.concatenate([t, th[:, None]], 1)
     np.testing.assert_allclose(got.estimate.cpu().numpy(), truth, atol=0.02)
 
 
@@ -467,7 +535,10 @@ def dual_room_scans(card):
     return packs, poses
 
 
-def test_multicue_align_kernel_matches_plain_on_card(card, dual_room_scans):
+@pytest.mark.parametrize("cues", [2, 1, 4])
+def test_multicue_align_kernel_matches_plain_on_card(card, dual_room_scans, cues):
+    """Both lasers (C = 2), the front laser alone (C = 1), and both twice
+    over (C = 4: every cue's system counted twice)."""
     from srrg2_laser_slam_2d_tpu_torch.ops import multicue_align_kernel as mak
     from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
 
@@ -479,7 +550,9 @@ def test_multicue_align_kernel_matches_plain_on_card(card, dual_room_scans):
              for c in range(2)]
     mov = cloud_op.concat(*clips)
     t0 = torch.tensor([-0.2, -0.1, -0.03], device=card)
-    m = packs[1]
+    order = {1: [0], 2: [0, 1], 4: [0, 1, 0, 1]}[cues]
+    m = packs[1].map(lambda x: x[order])
+    extr = extr[order]
     args = (cfg.projection, m.xy, m.normal, m.valid, extr, mov.xy, mov.normal, mov.valid, t0)
     for kw in (dict(odom_weight=1.0), dict(odom_weight=0.0, damping=5.0),
                dict(odom_weight=1.0, min_corr=100000)):

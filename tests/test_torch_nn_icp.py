@@ -2,7 +2,14 @@
 the plain PyTorch ``fused_align_pairs`` against the JAX Pallas kernel in
 interpret mode, J = 4 pairs of F = M = 512 points from one seed. Estimates
 agree within 1e-4; inlier and correspondence counts within 1 % (the two
-sides sum the normal equations in different orders)."""
+sides sum the normal equations in different orders).
+
+The CUDA kernel compares only VALID points (csrc/nn_icp_kernel.cu packs
+them to the front of each 512-point tile). That is exact because the
+reference's result does not depend on what an invalid point holds:
+``test_invalid_points_never_change_the_result`` gives invalid fixed and
+moving points arbitrary coordinates and normals, and the plain result is
+EQUAL to the one with zeros there, and agrees with the Pallas kernel."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -95,3 +102,76 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     movingP = tnn.pack_moving(state_from_numpy(moving))
     with pytest.raises(ValueError):    # CPU tensors never reach the launcher
         tnn._launch(fixedP, movingP, torch.from_numpy(inits), 3, 1.0, 0.8, 0.05, 10, 1)
+
+
+def _ragged_pairs(rng, n_pairs: int, F: int, live: int, M: int):
+    """Fixed clouds of F rows of which the first ``live`` hold wall points
+    (the rest invalid, zeros), moving clouds of M points seen from a pose
+    near the identity, 5 % of both invalid at random; initial guesses."""
+    f32 = np.float32
+    fxy, fn = np.zeros((n_pairs, F, 2), f32), np.zeros((n_pairs, F, 2), f32)
+    mxy, mn = np.zeros((n_pairs, M, 2), f32), np.zeros((n_pairs, M, 2), f32)
+    inits = np.zeros((n_pairs, 3), f32)
+    for j in range(n_pairs):
+        a = rng.uniform(-6, 6, (6, 2))
+        b = a + rng.uniform(-3, 3, (6, 2))
+        seg = rng.integers(0, 6, live)
+        p = a[seg] + rng.uniform(0, 1, (live, 1)) * (b[seg] - a[seg])
+        d = (b - a)[seg]
+        nrm = np.stack([-d[:, 1], d[:, 0]], 1) / np.linalg.norm(d, axis=1, keepdims=True)
+        t = np.array([rng.uniform(-0.3, 0.3), rng.uniform(-0.3, 0.3), rng.uniform(-0.1, 0.1)])
+        c, s = np.cos(t[2]), np.sin(t[2])
+        R = np.array([[c, -s], [s, c]])
+        pick = rng.integers(0, live, M)
+        fxy[j, :live], fn[j, :live] = p, nrm
+        mxy[j] = (p[pick] - t[:2]) @ R + rng.normal(0, 0.005, (M, 2))
+        mn[j] = nrm[pick] @ R
+        inits[j] = t + rng.normal(0, 0.05, 3)
+    fvalid = (np.arange(F) < live)[None] & (rng.uniform(size=(n_pairs, F)) > 0.05)
+    mvalid = rng.uniform(size=(n_pairs, M)) > 0.05
+    return JCloud(fxy, fn, fvalid), JCloud(mxy, mn, mvalid), inits
+
+
+def _scramble_invalid(rng, cloud):
+    """The cloud with arbitrary coordinates (within 50 m) and unit normals
+    in every invalid row."""
+    bad = ~cloud.valid
+    xy, nm = np.array(cloud.xy), np.array(cloud.normal)
+    xy[bad] = rng.uniform(-50, 50, (bad.sum(), 2))
+    ang = rng.uniform(-np.pi, np.pi, bad.sum())
+    nm[bad] = np.stack([np.cos(ang), np.sin(ang)], 1)
+    return cloud._replace(xy=xy.astype(np.float32), normal=nm.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["ragged-fixed", "invalid-tile"])
+def test_invalid_points_never_change_the_result(case):
+    """Case "ragged-fixed": 700 live fixed rows in a 1,024-row cloud (the
+    CUDA kernel takes F = 700 as it is) and M = 600 moving points; case
+    "invalid-tile": F = 1,536 with the whole second 512-point tile invalid,
+    M = 900. Invalid rows with arbitrary contents give the EQUAL plain
+    result; it agrees with the Pallas kernel in interpret mode as above."""
+    rng = np.random.default_rng(5)
+    if case == "ragged-fixed":
+        fixed, moving, inits = _ragged_pairs(rng, 2, 1024, 700, 600)
+    else:
+        fixed, moving, inits = _ragged_pairs(rng, 2, 1536, 1536, 900)
+        fixed = fixed._replace(valid=fixed.valid & ((np.arange(1536) < 512)
+                                                    | (np.arange(1536) >= 1024))[None])
+    kw = dict(iterations=12, max_distance=1.414, normal_cos=0.8, chi_threshold=0.05,
+              min_inliers=10, corr_refresh=3)
+    clean = tnn.fused_align_pairs(state_from_numpy(fixed), state_from_numpy(moving),
+                                  torch.from_numpy(inits), **kw)
+    sf, sm = _scramble_invalid(rng, fixed), _scramble_invalid(rng, moving)
+    assert np.abs(np.array(sf.xy) - np.array(fixed.xy)).max() > 10
+    got = tnn.fused_align_pairs(state_from_numpy(sf), state_from_numpy(sm),
+                                torch.from_numpy(inits), **kw)
+    for field in got._fields:
+        assert torch.equal(getattr(got, field), getattr(clean, field)), field
+    want = pallas_icp.fused_align_pairs(
+        JCloud(*map(jnp.asarray, sf)), JCloud(*map(jnp.asarray, sm)), jnp.asarray(inits),
+        interpret=True, **kw)
+    np.testing.assert_allclose(got.estimate.numpy(), np.asarray(want.estimate), atol=1e-4)
+    for field in ("num_inliers", "num_correspondences"):
+        g, w = getattr(got, field).numpy(), np.asarray(getattr(want, field))
+        assert np.all(np.abs(g - w) <= 0.01 * np.maximum(w, 1.0)), (field, g, w)
+        assert w.min() > 100
