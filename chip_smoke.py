@@ -24,8 +24,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   5. the four kernels of the per-message loop against their plain versions
      on the card, on real inputs: the first ``SCENE_FRAMES`` corridor frames
      tracked into one local map leave a scene of some 3,000 live points in
-     8,192 rows; the projector kernel (N = 8,192 points, B = 768 beams) and
-     the scene canvas kernel on that scene seen from the robot's pose, the
+     8,192 rows; the projector kernel (N = 8,192 points, B = 768 beams; then
+     a [16, 8,192] batch of views of the scene in ONE launch against 16
+     plain calls) and the scene canvas kernel on that scene seen from the
+     robot's pose and on the next scan from the identity (the merge's two
+     canvases), each timed on the device and at the host's pace at N =
+     8,192 and at the routes' shapes (the clip, the 1,024-row scan, batches
+     of 1, 4 and 16 views), the
      banded and the dense aligner kernels on the next scan (1,024 rows)
      against the scene's clip (721 rows, and 768 from the canvas kernel)
      with the odometry step as initial guess and prior, 10 iterations;
@@ -56,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      projector kernel, each with its launch counts asserted (one aligner
      launch per tracked frame; three canvas launches per tracked frame, two
      where the clip came from the cache; the projector kernel in every clip,
-     aligner pass and merge) and its ATE held inside ``CORRIDOR_THRESHOLDS``;
+     aligner pass and merge) and its ATE held inside ``CORRIDOR_THRESHOLDS``,
+     the calls of kernels 7 and 8 counted by shape (points, clouds);
      then route D (the default on a card: the frame kernel launched once per
      message) over the WHOLE corridor through ``generic_bench_app``'s
      function under ``corridor.json``: finite trajectory, a split, an
@@ -456,9 +462,13 @@ def check_nn_icp_corridor(batch) -> dict:
     corridor leaves the translation along it nearly free): there the plain
     version's OWN estimate moves by up to some 7e-2 when only the order of
     its sums changes. So the plain version is also run with the moving
-    points in 16 other orders (reversed, 15 permutations from seed 0), and
+    points in 64 other orders (reversed, 63 permutations from seed 0), and
     each pair's spread is how far its plain estimate moves over them; the
-    kernel's sum order is one more such order. Held: the estimate of every
+    kernel's sum order is one more such order. Some pairs are bistable:
+    most orders land on one branch and a few percent on another 2e-3 to
+    5e-3 away, so the orders must be many enough to find the rarer branch
+    (``bench/corridor_orders.py`` counts the corridor batches this check
+    fails with 16 to 256 orders). Held: the estimate of every
     pair whose spread is within the 1e-3 limit, to max(1e-3, 2 x spread);
     every pair's counts within 1 %; at least seven eighths of the pairs
     held (a pair whose spread exceeds the limit bifurcates under
@@ -478,7 +488,7 @@ def check_nn_icp_corridor(batch) -> dict:
             float(kw["chi_threshold"]), int(kw["min_inliers"]), int(kw["corr_refresh"])))
     p = plain()
     gen = torch.Generator().manual_seed(0)
-    orders = [torch.arange(M - 1, -1, -1)] + [torch.randperm(M, generator=gen) for _ in range(15)]
+    orders = [torch.arange(M - 1, -1, -1)] + [torch.randperm(M, generator=gen) for _ in range(63)]
     spread = torch.zeros(J, device=p.estimate.device)
     for order in orders:
         o = order.to(p.estimate.device)
@@ -737,16 +747,40 @@ def entry(name, source, replaces, err, ms, plain_ms, bytes_moved, flops, shape, 
             "shape": shape, **extra}
 
 
-def check_projector_kernel(proj, scene, X, S) -> dict:
-    """Kernel 8 against its plain version on the scene in the sensor frame:
-    index and depth of every beam EQUAL (same operations in the same order,
-    no sums)."""
-    from srrg2_laser_slam_2d_tpu_torch.ops import projector_kernel as pk
+def timed_pair(label: str, fn, device_reps: int, paced_reps: int) -> tuple[float, float]:
+    """Device and host-paced milliseconds of one wrapper call, kept under
+    ``label`` and ``label + " paced"`` in ``KERNEL_TIMINGS``."""
+    return (kernel_time_ms(label, device_time_ms, fn, device_reps),
+            kernel_time_ms(label + " paced", cuda_time_ms, fn, paced_reps))
+
+
+def scene_views(scene, X, S, K: int):
+    """The scene in the sensor frames of ``K`` robot poses around ``X``
+    (steps of 5 cm and 0.02 rad): a [K, N] batch of real clouds, the shape
+    the loop detector and the relocalizer hand the projector."""
     from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
     from srrg2_laser_slam_2d_tpu_torch.utils import geometry
 
-    local = cloud_op.transform(scene, geometry.inverse(geometry.compose(X, S)))
-    xy, valid = local.xy.contiguous(), local.valid.contiguous()
+    step = torch.tensor([0.05, -0.03, 0.02], device=X.device)
+    views = [cloud_op.transform(scene, geometry.inverse(geometry.compose(X + k * step, S)))
+             for k in range(K)]
+    return cloud_op.Cloud(*(torch.stack(f).contiguous() for f in zip(*views)))
+
+
+PROJECTOR_BATCHES = (1, 4, 16)
+
+
+def check_projector_kernel(proj, scene, X, S, meas) -> dict:
+    """Kernel 8 against its plain version on the scene in the sensor frame:
+    index and depth of every beam EQUAL (same operations in the same order,
+    no sums); then a [16, N] batch of views against 16 plain calls. Times
+    at N = 8,192 and at the route shapes: the clip (one row per beam) and
+    the measurement (1,024 rows) of every ICP, and [K, 8,192] batches."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import clip as clip_op
+    from srrg2_laser_slam_2d_tpu_torch.ops import projector_kernel as pk
+
+    views = scene_views(scene, X, S, max(PROJECTOR_BATCHES))
+    xy, valid = views.xy[0], views.valid[0]
     k = pk.project_local(proj, xy, valid)
     torch.cuda.synchronize()
     p = pk.project_local_plain(proj, xy, valid)
@@ -755,45 +789,76 @@ def check_projector_kernel(proj, scene, X, S) -> dict:
     assert torch.equal(k.idx, p.idx) and torch.equal(k.valid, p.valid), "winner indices differ"
     err = float((k.depth - p.depth).abs().max())
     assert err == 0.0, f"projector kernel depths differ by {err}"
+    before = pk.launches
+    kb = pk.project_local(proj, views.xy, views.valid)
+    torch.cuda.synchronize()
+    assert pk.launches == before + 1, "a batch of clouds must take one launch"
+    for j in range(views.xy.shape[0]):
+        pj = pk.project_local_plain(proj, views.xy[j], views.valid[j])
+        assert torch.equal(kb.idx[j], pj.idx) and torch.equal(kb.depth[j], pj.depth), \
+            f"batched projector kernel differs from the plain version on cloud {j}"
     n = xy.shape[0]
     B = pk.cols_padded(proj)
-    ms = kernel_time_ms("projector_kernel", device_time_ms,
-                        lambda: pk.project_local(proj, xy, valid), 100)
-    paced_ms = cuda_time_ms(lambda: pk.project_local(proj, xy, valid), 200)
+    ms, paced_ms = timed_pair("projector_kernel", lambda: pk.project_local(proj, xy, valid),
+                              100, 200)
     plain_ms = cuda_time_ms(lambda: pk.project_local_plain(proj, xy, valid), 20)
     from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
+    local = views.map(lambda x: x[0])
     scatter_ms = cuda_time_ms(lambda: projector_op.project_local_scatter(proj, local), 50)
-    log(f"projector kernel: {hits} beams hit, indices and depths equal; the port's "
-        f"scatter-min project_local (several PyTorch calls) takes {scatter_ms:.4f} ms")
+    clip = clip_op.clip_projective(proj, scene, X, S).map(lambda x: x.contiguous())
+    # label -> (points, valid, calls timed); a wrapper that launched once per
+    # cloud could not keep the queue full over 100 calls of a batch
+    shapes = {f"N={clip.capacity}": (clip.xy, clip.valid, 100),
+              f"N={meas.capacity}": (meas.xy, meas.valid, 100)}
+    shapes.update({f"[{K},{n}]": (views.xy[:K], views.valid[:K], max(6, 100 // K))
+                   for K in PROJECTOR_BATCHES})
+    route_shapes = {}
+    for label, (sxy, sv, reps) in shapes.items():
+        d, h = timed_pair(f"projector_kernel {label}",
+                          lambda sxy=sxy, sv=sv: pk.project_local(proj, sxy, sv), reps, reps)
+        route_shapes[label] = {"ms": d, "host_paced_ms": h}
+        log(f"projector kernel {label}: {d:.5f} ms device, {h:.5f} ms at the host's pace")
+    log(f"projector kernel: {hits} beams hit, indices and depths equal, single and "
+        f"[{views.xy.shape[0]}, {n}] batched; the port's scatter-min project_local "
+        f"(several PyTorch calls) takes {scatter_ms:.4f} ms")
     return entry("projector_kernel", "projector_kernel.cu", "pallas_projector.py:131", err, ms,
                  plain_ms, n * 9 + B * 8, n * pk.FLOPS_PER_POINT, f"N={n} B={B}",
-                 host_paced_ms=paced_ms, scatter_project_local_ms=scatter_ms)
+                 host_paced_ms=paced_ms, scatter_project_local_ms=scatter_ms,
+                 route_shapes=route_shapes)
 
 
-def check_scene_kernel(proj, scene, X, S) -> dict:
+def check_scene_kernel(proj, scene, X, S, meas) -> dict:
     """Kernel 7 against its plain version: winner rows EQUAL, depths equal,
-    fields within 1e-6 (single winners are copied, tied ones averaged)."""
+    fields within 1e-6 (single winners are copied, tied ones averaged), on
+    the scene seen from the robot (the clip's and the merge's scene canvas)
+    and on the measurement from the identity (the merge's measurement
+    canvas, 1,024 rows)."""
     from srrg2_laser_slam_2d_tpu_torch.ops import scene_kernel as sk
     from srrg2_laser_slam_2d_tpu_torch.utils import geometry
 
     cam = geometry.compose(X, S)
-    ko, kr = sk.canvas(proj, scene, cam)
-    torch.cuda.synchronize()
-    po, p_rows = sk.canvas_plain(proj, scene, cam)
-    assert torch.equal(kr, p_rows), "winner rows differ"
-    assert torch.equal(ko[0], po[0]) and torch.equal(ko[5], po[5]), "depths differ"
-    err = float((ko - po).abs().max())
-    assert err <= 1e-6, f"scene kernel fields differ by {err}"
+    zero = torch.zeros(3, device=cam.device)
+    err = 0.0
+    for cloud, pose in ((scene, cam), (meas, zero)):
+        ko, kr = sk.canvas(proj, cloud, pose)
+        torch.cuda.synchronize()
+        po, p_rows = sk.canvas_plain(proj, cloud, pose)
+        assert torch.equal(kr, p_rows), "winner rows differ"
+        assert torch.equal(ko[0], po[0]) and torch.equal(ko[5], po[5]), "depths differ"
+        err = max(err, float((ko - po).abs().max()))
+        assert err <= 1e-6, f"scene kernel fields differ by {err}"
+        log(f"scene kernel, {cloud.capacity} rows: {int((p_rows >= 0).sum())} beams hit, "
+            f"rows and depths equal, fields within {err:.3g}")
     n, B = scene.capacity, ko.shape[1]
-    ms = kernel_time_ms("scene_kernel", device_time_ms, lambda: sk.canvas(proj, scene, cam),
-                        100)
-    paced_ms = cuda_time_ms(lambda: sk.canvas(proj, scene, cam), 200)
+    ms, paced_ms = timed_pair("scene_kernel", lambda: sk.canvas(proj, scene, cam), 100, 200)
     plain_ms = cuda_time_ms(lambda: sk.canvas_plain(proj, scene, cam), 10)
-    log(f"scene kernel: {int((p_rows >= 0).sum())} beams hit, rows and depths equal, "
-        f"fields within {err:.3g}")
+    d, h = timed_pair(f"scene_kernel N={meas.capacity}", lambda: sk.canvas(proj, meas, zero),
+                      100, 100)
+    log(f"scene kernel N={meas.capacity}: {d:.5f} ms device, {h:.5f} ms at the host's pace")
     return entry("scene_kernel", "scene_kernel.cu", "pallas_scene.py:159", err, ms, plain_ms,
                  n * 17 + 12 + B * 28, n * sk.FLOPS_PER_POINT, f"N={n} B={B} chunk=1024",
-                 host_paced_ms=paced_ms)
+                 host_paced_ms=paced_ms,
+                 route_shapes={f"N={meas.capacity}": {"ms": d, "host_paced_ms": h}})
 
 
 def compare_align(label: str, k, p) -> float:
@@ -880,7 +945,8 @@ def check_message_kernels(msgs, slam_cfg, pcfg, device) -> list[dict]:
     """Kernels 8, 7, 5 and 4 against their plain versions on the card."""
     proj = slam_cfg.tracker.projection
     scene, X, S, meas, T0 = tracked_scene(msgs, slam_cfg, pcfg, device)
-    return [check_projector_kernel(proj, scene, X, S), check_scene_kernel(proj, scene, X, S),
+    return [check_projector_kernel(proj, scene, X, S, meas),
+            check_scene_kernel(proj, scene, X, S, meas),
             *check_align_kernels(proj, slam_cfg.tracker.aligner, scene, X, S, meas, T0)]
 
 
@@ -904,6 +970,15 @@ def _launch_modules():
 def reset_launches() -> None:
     for mod in _launch_modules().values():
         mod.launches = 0
+        if hasattr(mod, "calls"):
+            mod.calls.clear()
+
+
+def read_calls() -> dict:
+    """Each kernel's calls since ``reset_launches`` by shape: {"N x batch":
+    count} for the wrappers that keep a histogram (kernels 7 and 8)."""
+    return {name: {f"{n}x{b}": c for (n, b), c in sorted(mod.calls.items())}
+            for name, mod in _launch_modules().items() if getattr(mod, "calls", None)}
 
 
 def read_launches() -> dict:
@@ -993,7 +1068,7 @@ def message_route_run(name, flags, backend, slam_cfg, pcfg, msgs, device) -> tup
         n = runner.run(ListSource(msgs), MESSAGE_FRAMES)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches, calls = read_launches(), read_calls()
     finally:
         projector_op.ZBUFFER_BACKEND = None
     slam, tracker = runner.slam, runner.slam.tracker
@@ -1007,7 +1082,7 @@ def message_route_run(name, flags, backend, slam_cfg, pcfg, msgs, device) -> tup
            "ate_rmse_translation_m": float(stats["rmse_translation"]),
            "graph_variables": slam.num_variables(), "graph_factors": slam.num_factors(),
            "closures": slam.num_closures, "relocalizations": slam.relocalizations,
-           "launches": {k: v for k, v in launches.items() if v}}
+           "launches": {k: v for k, v in launches.items() if v}, "calls": calls}
     log(f"per-message route {name}, {n} frames: {json.dumps(out)}")
     assert n == MESSAGE_FRAMES and traj.shape == (n, 3) and np.isfinite(traj).all()
     assert tracker.steps == n - 1

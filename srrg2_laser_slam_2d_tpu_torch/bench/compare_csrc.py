@@ -1,9 +1,9 @@
 """Every kernel call that ``chip_smoke.py`` times, built from other CUDA
 sources and from the package's own, timed in turns on the card; then the
-phase tables of kernels 2 and 6.
+phase tables of kernels 2, 6, 7 and 8.
 
     python -m srrg2_laser_slam_2d_tpu_torch.bench.compare_csrc --csrc DIR
-        [--out chiprun_out/compare.json]
+        [--routes] [--clusters] [--out chiprun_out/compare.json]
 
 Run it from the repository root. ``DIR`` holds the other sources, e.g. an
 older commit's ``csrc`` unpacked under ``build/``::
@@ -17,12 +17,30 @@ run whose largest NN-ICP batch is kept, the MULTI drive), and every call
 they time (``chip_smoke.KERNEL_TIMINGS``) is timed again through the same
 wrapper from the other build and from the package's, in turns (other,
 own, own, other). Then a ``-DFRAME_PHASE_TIMING`` build of the package's
-kernels 2 and 6 gives their phase tables (thread 0 of block 0 stamps
+kernels 2, 6, 7 and 8 gives their phase tables (thread 0 of block 0 stamps
 ``clock64()`` at each phase boundary: SM cycles per launch of each phase),
 and each build's estimates on the corridor batch are held against the
 plain version's. Kernels 1 and 3's phase tables, barrier counts and
-beams-per-thread sweep are ``bench/frame_phases.py``'s. Prints one JSON
-object and writes it to ``--out``.
+beams-per-thread sweep are ``bench/frame_phases.py``'s.
+
+``--routes`` adds the per-message routes that launch kernels 7 and 8
+(``chip_smoke.py``'s B, B ``reuse_clip_canvas`` and C with the kernel
+z-buffer, 600 corridor frames each) from both builds in turns: wall, track
+and relocalize phases, launches, and each kernel's calls by (points,
+clouds); then every shape of those histograms timed from both builds in
+turns on clouds cut from the tracked scene, and the launch-weighted time
+of each kernel over its route's histogram.
+
+``--clusters`` times the package's kernels 8 and 7 at each cluster size
+(1, 2, 4, 8 blocks a cloud, in place of ``cluster_blocks``' choice) on a
+seeded synthetic cloud of 8,192 rows (uniform over 20 m x 20 m, 721 beams
+over +-pi; 3,200 and 8,192 of them valid), kernel 8 also on batches of 4
+and 16 such clouds in one launch.
+
+Sources whose kernels 7 and 8 predate the layout the wrappers take now
+(one cloud a launch, int32 indices, a canvas finished by PyTorch ops) are
+driven through ``legacy_project_local`` and ``legacy_canvas``, their
+wrappers of that time. Prints one JSON object and writes it to ``--out``.
 """
 
 from __future__ import annotations
@@ -37,19 +55,107 @@ from pathlib import Path
 import torch
 
 from ..ops import _cuda
+from ..ops import projector_kernel as pk
+from ..ops import scene_kernel as sk
+from ..ops.projector import Canvas
 
 PHASE_NAMES = {
     "nn_icp_kernel": ("pack the valid points", "pass constants", "nearest-neighbour scan",
                       "combine + match", "solve terms", "reduction", "update", "final stats"),
     "multicue_align_kernel": ("canvases + rows", "cue poses", "rows: fields, gather, terms",
-                              "warp sums", "reduction", "remap + update")}
+                              "warp sums", "reduction", "remap + update"),
+    "projector_kernel": ("init keys", "loads + beam assignment", "key atomics",
+                         "keys to the owners + cluster barrier", "owners: min + write"),
+    "scene_kernel": ("init (+ camera cos, sin)", "rows: loads, camera frame, beam",
+                     "pass 1: key atomics", "keys to the owners + barrier 1",
+                     "owners: min + write", "barrier 2",
+                     "pass 2: tied rows count at the owner, add their fields",
+                     "barrier 3 + owners divide ties")}
+ROUTES = ("B", "B reuse_clip_canvas", "C kernel z-buffer")
+# each kernel's histogram is read on the route named
+HISTOGRAM_ROUTE = {"projector_kernel": "C kernel z-buffer", "scene_kernel": "B"}
+
+
+class _LegacyProjectorParams(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("B", ctypes.c_int), ("cols", ctypes.c_int),
+                ("f", ctypes.c_float), ("c", ctypes.c_float),
+                ("range_min", ctypes.c_float), ("range_max", ctypes.c_float)]
+
+
+class _LegacySceneParams(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("B", ctypes.c_int), ("cols", ctypes.c_int),
+                ("chunk", ctypes.c_int), ("f", ctypes.c_float), ("c", ctypes.c_float),
+                ("range_min", ctypes.c_float), ("range_max", ctypes.c_float)]
+
+
+def _legacy_project_one(proj, xy, valid) -> Canvas:
+    dev = xy.device
+    B = pk.cols_padded(proj)
+    depth = torch.empty(B, dtype=torch.float32, device=dev)
+    idx = torch.empty(B, dtype=torch.int32, device=dev)
+    params = _LegacyProjectorParams(xy.shape[0], B, proj.cols, proj.f, proj.c,
+                                    proj.range_min, proj.range_max)
+    # a function object of its own: the package's signature has one output more
+    fn = _cuda.load("projector_kernel")["project_local"]
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 6, ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(xy.data_ptr(), valid.data_ptr(), depth.data_ptr(), idx.data_ptr(),
+                 ctypes.addressof(params), _cuda.stream_of(dev))
+    if err != 0:
+        raise RuntimeError(f"projector kernel launch failed: {_cuda.error_string(err)}")
+    pk.launches += 1
+    depth, idx = depth[: proj.cols], idx[: proj.cols].to(torch.int64)
+    v = idx >= 0
+    return Canvas(torch.where(v, depth, torch.full_like(depth, 3.0e38)), idx, v)
+
+
+def legacy_project_local(proj, xy, valid) -> Canvas:
+    """Kernel 8's wrapper for sources that launch one cloud at a time and
+    write a B-long depth (1e30 where empty) and int32 indices."""
+    n = xy.shape[-2]
+    fx, fv = xy.reshape(-1, n, 2).contiguous(), valid.reshape(-1, n).contiguous()
+    pk.calls[(n, fx.shape[0])] += 1
+    if not xy.shape[:-2]:
+        return _legacy_project_one(proj, fx[0], fv[0])
+    outs = [_legacy_project_one(proj, fx[k], fv[k]) for k in range(fx.shape[0])]
+    return Canvas(*(torch.stack(f).reshape(xy.shape[:-2] + (proj.cols,)) for f in zip(*outs)))
+
+
+def legacy_canvas(proj, cloud, camera_pose, chunk: int = 1024):
+    """Kernel 7's wrapper for sources that write int32 rows."""
+    dev = cloud.xy.device
+    xy, nm, valid = _cuda.cloud_tensors("cloud", cloud.xy, cloud.normal, cloud.valid, dev)
+    cam = camera_pose.to(torch.float32).contiguous()
+    n, B = xy.shape[0], pk.cols_padded(proj)
+    out = torch.empty(6, B, dtype=torch.float32, device=dev)
+    rows = torch.empty(B, dtype=torch.int32, device=dev)
+    params = _LegacySceneParams(n, B, proj.cols, sk._effective_chunk(n, chunk), proj.f, proj.c,
+                                proj.range_min, proj.range_max)
+    with torch.cuda.device(dev):
+        err = _cuda.load("scene_kernel").scene_canvas(
+            xy.data_ptr(), nm.data_ptr(), valid.data_ptr(), cam.data_ptr(), out.data_ptr(),
+            rows.data_ptr(), ctypes.addressof(params), _cuda.stream_of(dev))
+    if err != 0:
+        raise RuntimeError(f"scene kernel launch failed: {_cuda.error_string(err)}")
+    sk.launches += 1
+    sk.calls[(n, 1)] += 1
+    return out, rows.to(torch.int64)
+
+
+_WRAPPERS = {"projector_kernel": (pk, "project_local", pk.project_local, legacy_project_local),
+             "scene_kernel": (sk, "canvas", sk.canvas, legacy_canvas)}
 
 
 def use_build(csrc: Path, build_dir: Path) -> None:
     """Point the kernel wrappers at the libraries built from ``csrc`` into
-    ``build_dir``."""
+    ``build_dir``; kernels 7 and 8 of sources without ``canvas_layout``
+    go through their legacy wrappers."""
     _cuda.CSRC, _cuda.BUILD_DIR = Path(csrc), Path(build_dir)
     _cuda._LIBS.clear()
+    for name, (mod, attr, current, legacy) in _WRAPPERS.items():
+        if _cuda.library_path(name).exists():
+            layout = hasattr(_cuda.load(name), "canvas_layout")
+            setattr(mod, attr, current if layout else legacy)
 
 
 def phase_cycles(name: str) -> list[int]:
@@ -65,7 +171,102 @@ def phase_cycles(name: str) -> list[int]:
     return [int(v) for v in out[:len(PHASE_NAMES[name])]]
 
 
-def compare(other: Path, smoke) -> dict:
+def _cut(cloud, n: int):
+    """The first ``n`` points of every cloud of ``cloud`` (tiled where it
+    holds fewer)."""
+    from ..utils.cloud import Cloud
+
+    reps = -(-n // cloud.capacity)
+
+    def cut(x, axis):
+        return torch.cat([x] * reps, dim=axis).narrow(axis, 0, n).contiguous()
+
+    return Cloud(cut(cloud.xy, cloud.xy.dim() - 2), cut(cloud.normal, cloud.xy.dim() - 2),
+                 cut(cloud.valid, cloud.valid.dim() - 1))
+
+
+def shape_calls(smoke, proj, histograms: dict, scene, X, S) -> dict:
+    """name -> {"NxJ": call} for kernels 7 and 8 at every shape of their
+    histogram, on clouds cut from the tracked scene: kernel 8 on J views of
+    it, kernel 7 on it seen from the robot."""
+    from ..utils import geometry
+
+    cam = geometry.compose(X, S)
+    out = {}
+    for name, hist in histograms.items():
+        out[name] = {}
+        for key in hist:
+            n, J = (int(v) for v in key.split("x"))
+            if name == "projector_kernel":
+                views = _cut(smoke.scene_views(scene, X, S, J), n)
+                if J == 1:
+                    views = views.map(lambda x: x[0])
+                out[name][key] = lambda v=views: pk.project_local(proj, v.xy, v.valid)
+            else:
+                cloud = _cut(scene, n)
+                out[name][key] = lambda c=cloud: sk.canvas(proj, c, cam)
+    return out
+
+
+def route_rounds(smoke, builds, slam_cfg, pcfg, msgs, device) -> list:
+    """``ROUTES`` from each build in turns (other, own, own, other)."""
+    rounds = []
+    for label in ("other", "own", "own", "other"):
+        use_build(*builds[label])
+        for route in ROUTES:
+            name, flags, backend = next(r for r in smoke.MESSAGE_ROUTES if r[0] == route)
+            out, _ = smoke.message_route_run(name, flags, backend, slam_cfg, pcfg, msgs, device)
+            phases = out["phases"]
+            row = {"build": label, "route": route, "wall_s": out["wall_s"],
+                   "track_s": phases.get("track"), "relocalize_s": phases.get("relocalize"),
+                   "launches": out["launches"], "calls": out["calls"],
+                   "ate_rmse_translation_m": out["ate_rmse_translation_m"]}
+            smoke.log(f"route {route}, {label} build: {json.dumps(row)}")
+            rounds.append(row)
+    return rounds
+
+
+def cluster_sweep(smoke, device) -> list:
+    """``--clusters``: see the module docstring."""
+    from unittest import mock
+
+    import numpy as np
+
+    from ..ops.projector import PolarProjection
+    from ..utils.cloud import Cloud
+
+    proj = PolarProjection.make(cols=721, angle_min=-np.pi, angle_max=np.pi, range_min=0.0,
+                                range_max=30.0)
+    rng = np.random.default_rng(0)
+    n = 8192
+    xy = torch.as_tensor(rng.uniform(-10, 10, (n, 2)), dtype=torch.float32, device=device)
+    nm = torch.nn.functional.normalize(
+        torch.as_tensor(rng.normal(size=(n, 2)), dtype=torch.float32, device=device), dim=1)
+    cam = torch.tensor([0.3, -0.2, 0.4], device=device)
+    picked = pk.cluster_blocks(n)
+    rows = []
+    for live in (3200, n):
+        valid = torch.arange(n, device=device) < live
+        scene = Cloud(xy, nm, valid)
+        for J in (1, 4, 16):
+            X, V = ((xy, valid) if J == 1 else
+                    (xy.expand(J, -1, -1).contiguous(), valid.expand(J, -1).contiguous()))
+            calls = {"projector_kernel": lambda: pk.project_local(proj, X, V)}
+            if J == 1:
+                calls["scene_kernel"] = lambda: sk.canvas(proj, scene, cam)
+            for cluster in (1, 2, 4, 8):
+                with mock.patch.object(pk, "cluster_blocks", lambda _n: cluster), \
+                        mock.patch.object(sk, "cluster_blocks", lambda _n: cluster):
+                    for name, fn in calls.items():
+                        row = {"kernel": name, "n": n, "valid": live, "clouds": J,
+                               "cluster": cluster, "picked": cluster == picked,
+                               "ms": smoke.device_time_ms(fn, 100)}
+                        smoke.log(f"cluster sweep: {json.dumps(row)}")
+                        rows.append(row)
+    return rows
+
+
+def compare(other: Path, smoke, routes: bool = False, clusters: bool = False) -> dict:
     """See the module docstring; ``smoke`` is the ``chip_smoke`` module."""
     from ..bench import corridor_e2e
     from ..ops import nn_icp_kernel as nk
@@ -84,7 +285,7 @@ def compare(other: Path, smoke) -> dict:
     logs = _cuda.compile_all(jobs)
     smoke.log(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     for key, text in logs.items():
-        if key.startswith("own/nn") or key.startswith("own/multicue"):
+        if key.startswith(("own/nn", "own/multicue", "own/projector", "own/scene")):
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     smoke.log(f"  {key}: {line.strip()}")
@@ -114,9 +315,10 @@ def compare(other: Path, smoke) -> dict:
 
     phases = {}
     use_build(own[0], ab / "timing")
-    for name, label in (("nn_icp_kernel", "nn_icp_kernel"),
-                        ("nn_icp_kernel", "nn_icp_kernel corridor batch"),
-                        ("multicue_align_kernel", "multicue_align_kernel")):
+    # every device timing of the stamped kernels (block 0 of the last launch)
+    stamped = [(label.split(" ")[0], label) for label in smoke.KERNEL_TIMINGS
+               if label.split(" ")[0] in PHASE_NAMES and not label.endswith(" paced")]
+    for name, label in stamped:
         method, fn, reps = smoke.KERNEL_TIMINGS[label]
         ms = method(fn, reps)
         fn()
@@ -141,8 +343,37 @@ def compare(other: Path, smoke) -> dict:
                   f"{max(pair_err[label]):.3g}, pairs above 1e-3 "
                   f"{sum(e > 1e-3 for e in pair_err[label])}")
     use_build(*own)
-    return {"rounds": rounds, "phases": phases, "corridor_batch": corridor_check,
-            "corridor_pair_err": pair_err}
+    result = {"rounds": rounds, "phases": phases, "corridor_batch": corridor_check,
+              "corridor_pair_err": pair_err}
+    if routes:
+        result.update(routes_and_histograms(smoke, builds, mgr, msgs, device))
+    if clusters:
+        result["clusters"] = cluster_sweep(smoke, device)
+    return result
+
+
+def routes_and_histograms(smoke, builds, mgr, msgs, device) -> dict:
+    """``--routes``: see the module docstring."""
+    slam_cfg, pcfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
+    route_rows = route_rounds(smoke, builds, slam_cfg, pcfg, msgs, device)
+    first_own = {r["route"]: r for r in route_rows if r["build"] == "own"}
+    histograms = {name: first_own[route]["calls"][name]
+                  for name, route in HISTOGRAM_ROUTE.items()}
+    scene, X, S, _, _ = smoke.tracked_scene(msgs, slam_cfg, pcfg, device)
+    calls = shape_calls(smoke, slam_cfg.tracker.projection, histograms, scene, X, S)
+    shape_rounds = []
+    for label in ("other", "own", "own", "other"):
+        use_build(*builds[label])
+        ms = {name: {key: smoke.device_time_ms(fn, max(4, 64 // int(key.split("x")[1])))
+                     for key, fn in fns.items()}
+              for name, fns in calls.items()}
+        weighted = {name: sum(histograms[name][key] * t for key, t in ms[name].items())
+                    for name in ms}
+        row = {"build": label, "ms": ms, "launch_weighted_ms": weighted}
+        smoke.log(f"histogram shapes, {label} build: {json.dumps(row)}")
+        shape_rounds.append(row)
+    use_build(*builds["own"])
+    return {"routes": route_rows, "histograms": histograms, "histogram_shapes": shape_rounds}
 
 
 def main() -> None:
@@ -150,6 +381,10 @@ def main() -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--csrc", type=Path, required=True,
                     help="the other CUDA sources, timed in turns with the package's own")
+    ap.add_argument("--routes", action="store_true",
+                    help="also the routes that launch kernels 7 and 8, and their histograms")
+    ap.add_argument("--clusters", action="store_true",
+                    help="also the package's kernels 7 and 8 at each cluster size")
     ap.add_argument("--out", default="chiprun_out/compare.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -161,7 +396,7 @@ def main() -> None:
     import chip_smoke
 
     result = {"card": card_description(torch.device("cuda")), "other": str(args.csrc),
-              **compare(args.csrc.resolve(), chip_smoke)}
+              **compare(args.csrc.resolve(), chip_smoke, args.routes, args.clusters)}
     print(json.dumps(result))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:

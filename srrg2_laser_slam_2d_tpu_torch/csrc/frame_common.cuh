@@ -11,6 +11,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -90,6 +91,91 @@ __device__ __forceinline__ void inverse_s(const float* a, float* o) {
   float o0 = -(c * a[0] + s * a[1]);
   float o1 = -(-s * a[0] + c * a[1]);
   o[0] = o0; o[1] = o1; o[2] = -a[2];
+}
+
+// ------------------------------------------------------------------------
+// Z-buffer helpers of projector_kernel.cu and scene_kernel.cu (kernels 8 and
+// 7): a key is (depth bits << 32 | row), so its minimum is the closest depth
+// and, among equal depths, the lowest row. A cloud of more than 1,024 points
+// is spread over a thread-block cluster of at most kZbMaxCluster blocks.
+constexpr int kZbMaxCluster = 8;              // the portable cluster size
+// entries of an owner's stage: cluster * zb_owned(B, cluster) for B <= 1,024
+constexpr int kZbStage = 1024 + kZbMaxCluster;
+constexpr unsigned long long kZbEmptyKey = ~0ull;
+
+// Key into THIS block's shared keys. A 64-bit atomicMin through distributed
+// shared memory is not atomic on the card (bench/dsmem_probe.py), a
+// CTA-local one is; the blocks' keys then meet at each beam's owner.
+__device__ __forceinline__ void zb_key_min(unsigned long long* keys, int col,
+                                           unsigned long long key) {
+  if (col >= 0) atomicMin(&keys[col], key);
+}
+
+// A block may touch another block's shared memory only once every block of
+// the cluster has started. Each thread arrives (relaxed: no memory order) at
+// the kernel's entry and waits just before its first access through
+// distributed shared memory, so the wait finds the others long arrived; the
+// cluster barriers after it (cluster.sync()) take the next phases.
+__device__ __forceinline__ void zb_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void zb_cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Beam b is owned by block b % cluster; the owner holds `per` beams.
+__host__ __device__ __forceinline__ int zb_owned(int B, int cluster) {
+  return (B + cluster - 1) / cluster;
+}
+
+// Once this block's keys are final (after a __syncthreads) and every block
+// of the cluster has started (zb_cluster_wait): send the key of
+// each of the first B beams to its owner, into the owner's
+// stage[rank * per + b / cluster], by stores through distributed shared
+// memory (no load waits; the next cluster barrier completes them).
+__device__ __forceinline__ void zb_push_keys(const unsigned long long* keys,
+                                             unsigned long long* stage, int B, int cluster,
+                                             int rank) {
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const int per = zb_owned(B, cluster);
+  for (int b = threadIdx.x; b < B; b += blockDim.x)
+    cl.map_shared_rank(stage, b % cluster)[rank * per + b / cluster] = keys[b];
+}
+
+// The owner's minimum over the cluster's blocks of its j-th beam (beam
+// rank + j * cluster), from its own stage.
+__device__ __forceinline__ unsigned long long zb_owned_min(const unsigned long long* stage,
+                                                           int j, int B, int cluster) {
+  const int per = zb_owned(B, cluster);
+  unsigned long long k[kZbMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kZbMaxCluster; ++r) k[r] = r < cluster ? stage[r * per + j] : kZbEmptyKey;
+  unsigned long long m = k[0];
+#pragma unroll
+  for (int r = 1; r < kZbMaxCluster; ++r) m = k[r] < m ? k[r] : m;
+  return m;
+}
+
+// Launch `kernel` on `blocks` blocks in clusters of `cluster` blocks (the
+// cluster size is a launch attribute here, not a property of the kernel).
+// A cluster the card refuses returns its error.
+template <typename... Params, typename... Args>
+static cudaError_t zb_launch_clusters(void (*kernel)(Params...), int blocks, int threads,
+                                      int cluster, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -40,7 +40,7 @@ _SIGNATURES = {
                      "frame_block_sum13": [_VOID, _VOID, _INT, _VOID]},
     "nn_icp_kernel": {"nn_icp_align_pairs": [_VOID] * 5 + [ctypes.c_void_p, _VOID]},
     "stream_kernel": {"stream_track_grid": [_VOID] * 7 + [ctypes.c_void_p, _VOID]},
-    "projector_kernel": {"project_local": [_VOID] * 6},
+    "projector_kernel": {"project_local": [_VOID] * 7},
     "scene_kernel": {"scene_canvas": [_VOID] * 8},
     "banded_align_kernel": {"banded_align": _ALIGN_ARGS},
     "projective_align_kernel": {"projective_align": _ALIGN_ARGS},

@@ -74,10 +74,9 @@ def project(proj: PolarProjection, camera_pose: torch.Tensor,
 # Backend of ``project_local``: "scatter" | "sort" | "kernel" | None. None
 # picks "scatter" on the CPU and on the card alike. (The JAX package picks
 # "sort" on a TPU, where a scatter with repeated indices runs as a serial
-# loop; on the card ``scatter_reduce`` is a pass of atomics, takes the
-# detector's batch of candidate scenes in one call and keeps exact depths,
-# while the kernel z-buffers one cloud per launch and assigns beams with the
-# polynomial arctangent, so the parity route keeps "scatter" unless asked.)
+# loop; on the card ``scatter_reduce`` is a pass of atomics and keeps exact
+# depths, while the kernel, one launch for a whole batch, assigns beams with
+# the polynomial arctangent, so the parity route keeps "scatter" unless asked.)
 ZBUFFER_BACKEND: str | None = None
 
 
@@ -96,13 +95,7 @@ def project_local(proj: PolarProjection, local: Cloud) -> Canvas:
     if backend == "kernel":
         from . import projector_kernel
 
-        batch = local.xy.shape[:-2]
-        if not batch:
-            return projector_kernel.project_local(proj, local.xy, local.valid)
-        flat = local.map(lambda x: x.reshape((-1,) + x.shape[len(batch):]))
-        outs = [projector_kernel.project_local(proj, flat.xy[k], flat.valid[k])
-                for k in range(flat.xy.shape[0])]
-        return Canvas(*(torch.stack(f).reshape(batch + (proj.cols,)) for f in zip(*outs)))
+        return projector_kernel.project_local(proj, local.xy, local.valid)
     return project_local_scatter(proj, local)
 
 

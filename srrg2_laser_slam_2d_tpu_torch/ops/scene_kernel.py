@@ -8,8 +8,10 @@ closest depth, the winner's point and normal in the camera frame and the
 winner's scene row. The scene is read in chunks of ``chunk`` rows: points
 tied at the minimum depth inside the winning chunk are averaged, an earlier
 chunk keeps a beam against an equal depth, and the winner row is the lowest
-index. The CUDA kernel is ``csrc/scene_kernel.cu``; ``canvas_plain`` is its
-plain PyTorch version (a dense [chunk, B] compare per chunk). The merge's
+index. The CUDA kernel is ``csrc/scene_kernel.cu`` (a thread-block cluster
+of ``cluster_blocks(N)`` blocks, each row's camera-frame fields computed
+once, int64 rows written by the kernel); ``canvas_plain`` is its plain
+PyTorch version (a dense [chunk, B] compare per chunk). The merge's
 per-beam decisions and row writes are plain PyTorch on both routes, as they
 are XLA code in the JAX package.
 """
@@ -17,6 +19,7 @@ are XLA code in the JAX package.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -26,7 +29,7 @@ from . import _beam_kernels as bk
 from . import _cuda
 from .merge import _append_tail, _beam_decisions, _put_rows, _unit_mean
 from .projector import PolarProjection
-from .projector_kernel import cols_padded
+from .projector_kernel import cluster_blocks, cols_padded
 
 _BIG = 1.0e30
 # floating-point operations per scene row: 14 for the camera transform of
@@ -34,6 +37,8 @@ _BIG = 1.0e30
 FLOPS_PER_POINT = 60
 # launches of the CUDA kernel (reset by callers that count a run)
 launches = 0
+# calls that launched the kernel, by (scene rows, canvases)
+calls: Counter = Counter()
 
 
 class _SceneParams(ctypes.Structure):
@@ -41,7 +46,8 @@ class _SceneParams(ctypes.Structure):
 
     _fields_ = [("n", ctypes.c_int), ("B", ctypes.c_int), ("cols", ctypes.c_int),
                 ("chunk", ctypes.c_int), ("f", ctypes.c_float), ("c", ctypes.c_float),
-                ("range_min", ctypes.c_float), ("range_max", ctypes.c_float)]
+                ("range_min", ctypes.c_float), ("range_max", ctypes.c_float),
+                ("cluster", ctypes.c_int)]
 
 
 def _effective_chunk(n: int, chunk: int) -> int:
@@ -102,10 +108,10 @@ def canvas(proj: PolarProjection, cloud: Cloud, camera_pose: torch.Tensor,
         raise ValueError(f"{proj.cols} beams: the kernel holds at most 1024")
     n = xy.shape[0]
     out = torch.empty(6, B, dtype=torch.float32, device=dev)
-    rows = torch.empty(B, dtype=torch.int32, device=dev)
+    rows = torch.empty(B, dtype=torch.int64, device=dev)
     params = _SceneParams(n=n, B=B, cols=proj.cols, chunk=_effective_chunk(n, chunk),
                           f=proj.f, c=proj.c, range_min=proj.range_min,
-                          range_max=proj.range_max)
+                          range_max=proj.range_max, cluster=cluster_blocks(n))
     lib = _cuda.load("scene_kernel")
     with torch.cuda.device(dev):
         err = lib.scene_canvas(xy.data_ptr(), nm.data_ptr(), valid.data_ptr(), cam.data_ptr(),
@@ -114,7 +120,8 @@ def canvas(proj: PolarProjection, cloud: Cloud, camera_pose: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"scene kernel launch failed: {_cuda.error_string(err)}")
     launches += 1
-    return out, rows.to(torch.int64)
+    calls[(n, 1)] += 1
+    return out, rows
 
 
 def _cells(c: torch.Tensor):

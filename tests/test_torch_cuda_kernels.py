@@ -13,8 +13,9 @@ the same order and differ only in the order of their block sums, so poses
 and payload points agree to 1e-4 over 16 frames and NN-ICP estimates to
 1e-4 (chip_smoke.py holds the full-width shapes to 1e-3). The projector and
 scene kernels do no sums: indices, rows and depths are EQUAL, fields agree
-to 1e-6; the aligner kernels' estimates agree to 1e-5, their counts to 1
-(the multi-cue aligner's, which sums twice the rows, to 2). The probes: the
+to 1e-6 (ties are averaged across the blocks of a cluster); the aligner
+kernels' estimates agree to 1e-5, their counts to 1 (the multi-cue
+aligner's, which sums twice the rows, to 2). The probes: the
 shift z-buffer's winners and validity EQUAL and depths within 1e-6; the
 gather EQUAL (the same additions in the same order)."""
 
@@ -29,6 +30,7 @@ from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
 from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import (
     LaserModel, PreprocessorConfig, ScanPreprocessor)
 from srrg2_laser_slam_2d_tpu_torch.models import tracker as tr
+from srrg2_laser_slam_2d_tpu_torch.ops import _beam_kernels as bk
 from srrg2_laser_slam_2d_tpu_torch.ops import banded_align_kernel as bak
 from srrg2_laser_slam_2d_tpu_torch.ops import clip as clip_op
 from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
@@ -371,53 +373,96 @@ def _random_cloud(card, seed: int, n: int) -> Cloud:
 
 
 def _with_ties(cloud: Cloud, proj, rows, depth: float, beam: int) -> Cloud:
-    """``cloud`` with the given rows moved onto one beam at one depth."""
+    """``cloud`` with the given rows moved onto one beam at one depth; the
+    other points of that beam up to 1 cm behind the tie are made invalid,
+    so the tie holds the beam."""
     ang = (beam + 0.5 - proj.c) / proj.f
     xy, valid = cloud.xy.clone(), cloud.valid.clone()
+    d, colf, _ = bk.beam_fields(xy[:, 0], xy[:, 1], valid, proj)
+    valid &= ~((colf == beam) & (d <= depth + 0.01))
     for r in rows:
         xy[r] = torch.tensor([depth * np.cos(ang), depth * np.sin(ang)], dtype=torch.float32)
         valid[r] = True
     return Cloud(xy, cloud.normal, valid)
 
 
-@pytest.mark.parametrize("n", [1000, 4096])
-def test_projector_kernel_matches_plain_on_card(card, n):
+def _tie_rows(n: int) -> tuple:
+    """Three rows of one tie: in three blocks of the cluster from 8,192
+    points on, else spread over the cloud."""
+    return (17, 5000, 8000) if n >= 8192 else (17, n // 2, n - 1)
+
+
+@pytest.mark.parametrize("n,batch", [(768, 0), (1000, 0), (1024, 0), (1025, 0), (4096, 0),
+                                     (8192, 0), (12288, 0), (20000, 0), (768, 1), (768, 4),
+                                     (768, 16), (8192, 1), (8192, 4), (8192, 16)])
+def test_projector_kernel_matches_plain_on_card(card, n, batch):
+    """One block (N <= 1,024), a cluster (one point a thread), a cluster
+    with two points a thread (12,288) and one with a second round of points
+    (20,000); a batch of K clouds in ONE launch, each equal to the plain
+    version; a tie at one depth on one beam, in three blocks of the cluster
+    from 8,192 points on: the lowest row wins."""
     proj = projector_op.PolarProjection.make(cols=361, angle_min=-np.pi, angle_max=np.pi,
                                              range_min=0.3, range_max=20.0)
-    cloud = _with_ties(_random_cloud(card, 5, n), proj, (17, 400, 900), 0.5, 100)
+    clouds = [_with_ties(_random_cloud(card, 5 + j, n), proj, _tie_rows(n), 0.5, 100)
+              for j in range(max(batch, 1))]
+    xy = torch.stack([c.xy for c in clouds]) if batch else clouds[0].xy
+    valid = torch.stack([c.valid for c in clouds]) if batch else clouds[0].valid
     before = pk.launches
-    k = pk.project_local(proj, cloud.xy, cloud.valid)
+    k = pk.project_local(proj, xy, valid)
     torch.cuda.synchronize()
     assert pk.launches == before + 1
-    p = pk.project_local_plain(proj, cloud.xy, cloud.valid)
-    assert torch.equal(k.idx, p.idx) and torch.equal(k.valid, p.valid)
-    assert torch.equal(k.depth, p.depth) and int(k.valid.sum()) > 200
-    assert int(k.idx[100]) == 17                      # the lowest index of the tie
+    assert k.idx.dtype == torch.int64 and k.depth.shape == xy.shape[:-2] + (361,)
+    for j, c in enumerate(clouds):
+        kj = pk.Canvas(*(f[j] for f in k)) if batch else k
+        p = pk.project_local_plain(proj, c.xy, c.valid)
+        assert torch.equal(kj.idx, p.idx) and torch.equal(kj.valid, p.valid)
+        assert torch.equal(kj.depth, p.depth) and int(kj.valid.sum()) > 200
+        assert int(kj.idx[100]) == 17                 # the lowest index of the tie
     projector_op.ZBUFFER_BACKEND = "kernel"
     try:
-        via_switch = projector_op.project_local(proj, cloud)
+        via_switch = projector_op.project_local(
+            proj, Cloud(xy, torch.zeros_like(xy), valid))
     finally:
         projector_op.ZBUFFER_BACKEND = None
     assert torch.equal(via_switch.idx, k.idx) and pk.launches == before + 2
 
 
-@pytest.mark.parametrize("n,chunk", [(1000, 256), (4096, 1024), (8192, 1024)])
-def test_scene_kernel_matches_plain_on_card(card, n, chunk):
+@pytest.mark.parametrize("n,chunk,ties", [(1000, 256, (17, 40, 900)),
+                                          (4096, 1024, (17, 40, 900)),
+                                          (8192, 1024, (17, 40, 900)),
+                                          (8192, 4096, (1000, 1100, 5000)),
+                                          (12288, 12288, (3000, 7000, 12000)),
+                                          (20000, 4096, (16500, 16600, 17000))])
+def test_scene_kernel_matches_plain_on_card(card, n, chunk, ties):
+    """Rows and depths equal to the plain version, fields within 1e-6, on
+    one block and on clusters. The first two tied rows share the winning
+    chunk and are averaged: from 8,192 rows on they lie in different blocks
+    of the cluster (12,288 rows: three rows in three blocks, two of them a
+    thread's second row; 20,000 rows: three rows of the second round, which
+    pass 2 computes again), so the tie's count and sums cross blocks."""
     proj = projector_op.PolarProjection.make(cols=361, angle_min=-np.pi, angle_max=np.pi,
                                              range_min=0.3, range_max=20.0)
     cam = torch.tensor([0.3, -0.2, 0.4], device=card)
-    # rows 17 and 40 tie inside the first chunk, row 900 ties from a later one
-    local = _with_ties(_random_cloud(card, 6, n), proj, (17, 40, 900), 0.5, 100)
+    local = _with_ties(_random_cloud(card, 6, n), proj, ties, 0.5, 100)
     from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
     scene = cloud_op.transform(local, cam).map(lambda x: x.contiguous())
     before = sck.launches
     ko, kr = sck.canvas(proj, scene, cam, chunk=chunk)
     torch.cuda.synchronize()
-    assert sck.launches == before + 1
+    assert sck.launches == before + 1 and kr.dtype == torch.int64
     po, p_rows = sck.canvas_plain(proj, scene, cam, chunk=chunk)
     assert torch.equal(kr, p_rows) and torch.equal(ko[0], po[0]) and torch.equal(ko[5], po[5])
     np.testing.assert_allclose(ko.cpu().numpy(), po.cpu().numpy(), atol=1e-6)
     assert int((kr >= 0).sum()) > 200
+    # the tie: the lowest row wins, the fields are the mean over the tied rows
+    # of the winning chunk (camera-frame normals)
+    assert int(kr[100]) == ties[0]
+    same = [r for r in ties if r // chunk == ties[0] // chunk]
+    assert len(same) >= 2
+    c, s_ = torch.cos(cam[2]), torch.sin(cam[2])
+    nm = scene.normal[list(same)]
+    mean = torch.stack([c * nm[:, 0] + s_ * nm[:, 1], -s_ * nm[:, 0] + c * nm[:, 1]], 1).mean(0)
+    np.testing.assert_allclose(ko[3:5, 100].cpu().numpy(), mean.cpu().numpy(), atol=1e-6)
     kclip = sck.clip_projective(proj, scene, torch.zeros(3, device=card), cam, chunk=chunk)
     assert kclip.capacity == 384 and sck.launches == before + 2
 

@@ -79,7 +79,7 @@ def test_sort_backend_matches_jax_sort():
 
 def test_backend_switch_scatter_sort_kernel_agree(monkeypatch):
     """The three backends give one canvas on a cloud without bin-edge
-    points; the kernel backend takes batches cloud by cloud; an unknown
+    points; the kernel backend takes batches in one wrapper call; an unknown
     backend raises."""
     xy, nm, valid = _cloud(4)
     cloud = Cloud(torch.from_numpy(xy), torch.from_numpy(nm), torch.from_numpy(valid))
@@ -100,6 +100,61 @@ def test_backend_switch_scatter_sort_kernel_agree(monkeypatch):
     monkeypatch.setattr(tproj, "ZBUFFER_BACKEND", "pallas")
     with pytest.raises(ValueError, match="backend"):
         tproj.project_local(TP, cloud)
+
+
+@pytest.mark.parametrize("batch", [(1,), (3,), (2, 3)])
+def test_kernel_backend_batch_matches_pallas_cloud_by_cloud(monkeypatch, batch):
+    """A leading batch goes through ``project_local`` on the kernel backend
+    in one wrapper call (the plain version on the CPU): each cloud's canvas
+    is bit-equal to that cloud projected alone, and against
+    ``project_local_pallas`` on that cloud the indices are equal and the
+    depths agree to 1e-6 (the module's tolerance: XLA fuses x*x + y*y into
+    one multiply-add, one ulp apart)."""
+    k = int(np.prod(batch))
+    clouds = [_cloud(10 + j, 300) for j in range(k)]
+    xy = np.stack([c[0] for c in clouds]).reshape(batch + (300, 2))
+    nm = np.stack([c[1] for c in clouds]).reshape(batch + (300, 2))
+    valid = np.stack([c[2] for c in clouds]).reshape(batch + (300,))
+    monkeypatch.setattr(tproj, "ZBUFFER_BACKEND", "kernel")
+    before = pk.launches
+    t = tproj.project_local(TP, Cloud(torch.from_numpy(xy), torch.from_numpy(nm),
+                                      torch.from_numpy(valid)))
+    assert pk.launches == before                  # CPU tensors: the plain version
+    assert t.depth.shape == t.idx.shape == t.valid.shape == batch + (COLS,)
+    for j in np.ndindex(*batch):
+        alone = pk.project_local(TP, torch.from_numpy(xy[j]), torch.from_numpy(valid[j]))
+        for a, b in zip(alone, (t.depth[j], t.idx[j], t.valid[j])):
+            assert torch.equal(a, b)
+        jc = jpp.project_local_pallas(JP, jnp.asarray(xy[j]), jnp.asarray(valid[j]),
+                                      interpret=True)
+        _assert_canvas(alone, jc)
+
+
+def test_kernel_canvas_dtypes_and_empty_value():
+    """The wrapper's Canvas: float32 depth of ``cols`` beams with 3e38 where
+    empty, int64 index with -1, bool valid (what the scatter backend and
+    every caller take)."""
+    xy, nm, valid = _cloud(6, 40)
+    for batch in ((), (2,)):
+        x = torch.from_numpy(xy).expand(batch + xy.shape)
+        v = torch.from_numpy(valid).expand(batch + valid.shape)
+        t = pk.project_local(TP, x, v)
+        s = tproj.project_local_scatter(TP, Cloud(x, torch.from_numpy(nm).expand(x.shape), v))
+        for a, b, dtype in zip(t, s, (torch.float32, torch.int64, torch.bool)):
+            assert a.dtype == b.dtype == dtype and a.shape == b.shape == batch + (COLS,)
+        empty = ~t.valid
+        assert bool(empty.any()) and bool(t.valid.any())
+        assert bool((t.depth[empty] == 3.0e38).all()) and bool((t.idx[empty] == -1).all())
+        assert torch.equal(t.valid, t.idx >= 0)
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (768, 1), (1024, 1), (1025, 2), (8192, 8),
+                                      (12288, 8), (40000, 8)])
+def test_cluster_blocks(n, blocks):
+    """Kernels 7 and 8 spread a cloud of more than 1,024 points over one
+    block per 1,024 points, at most 8 (one thread: one or two points up to
+    16,384)."""
+    assert pk.cluster_blocks(n) == blocks
 
 
 def test_wrapper_refuses_a_device_that_is_neither_cpu_nor_cuda():

@@ -51,6 +51,20 @@ def test_canvas_plain_matches_pallas_interpret(seed, n, chunk):
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-6)
 
 
+@pytest.mark.parametrize("n,chunk", [(2100, 1024), (1500, 256)])
+def test_canvas_returns_int64_rows_equal_to_pallas(n, chunk):
+    """``canvas`` returns int64 winner rows (the kernel writes them so),
+    equal to ``canvas_pallas`` on scenes of more than 1,024 rows, the sizes
+    the kernel spreads over a cluster."""
+    jc, tc = _both(*_arrays(7 + n, n))
+    jo, jr = jps.canvas_pallas(JP, jc, jnp.asarray(CAM), chunk=chunk, interpret=True)
+    to, tr = sk.canvas(TP, tc, torch.from_numpy(CAM), chunk=chunk)
+    assert tr.dtype == torch.int64 and tr.shape == (sk.cols_padded(TP),)
+    assert int((tr >= 0).sum()) > 100 and int(tr.max()) >= 1024
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=2e-6)
+
+
 def _tied_cloud(second_row: int, n: int = 64):
     """Rows 3 and ``second_row`` lie at the same depth on beam 100 (seen
     from the identity camera) with different normals; row 7 lies behind."""
