@@ -882,6 +882,26 @@ def compare_align(label: str, k, p) -> float:
     return err
 
 
+def compare_tied(proj, B, kernel, plain, meas, clip, beam_indexed, T0, kw, label) -> float:
+    """``compare_align`` on the same call with forced two- and three-way
+    bitwise depth ties (``bench.synthetic.with_tied_rows``) at the closest
+    depth of their beams in the fixed canvas and, but for the banded
+    kernel's beam-indexed clip, in the moving z-buffer at the initial
+    estimate, where the tied rows' normals differ."""
+    from srrg2_laser_slam_2d_tpu_torch.bench.synthetic import tie_counts, with_tied_rows
+
+    views = {"fixed": (proj, torch.zeros(3, device=T0.device), B), "moving": (proj, T0, B)}
+    tf = with_tied_rows(meas, 1, view=views["fixed"])
+    tm = with_tied_rows(clip, 2, beam_indexed, view=None if beam_indexed else views["moving"])
+    for name, cloud in (("fixed", tf), ("moving", tm))[: 1 + (not beam_indexed)]:
+        ties = tie_counts(cloud, views[name])
+        assert {2, 3} <= ties, f"{label}: the {name} cloud's ties {ties} lack 2 or 3"
+    args = (tf.xy, tf.normal, tf.valid, tm.xy, tm.normal, tm.valid, T0)
+    k = kernel(proj, *args, **kw)
+    torch.cuda.synchronize()
+    return compare_align(f"{label}, tied depths", k, plain(proj, *args, **kw))
+
+
 def check_align_kernels(proj, acfg, scene, X, S, meas, T0) -> list[dict]:
     from srrg2_laser_slam_2d_tpu_torch.ops import banded_align_kernel as bak
     from srrg2_laser_slam_2d_tpu_torch.ops import clip as clip_op
@@ -903,13 +923,18 @@ def check_align_kernels(proj, acfg, scene, X, S, meas, T0) -> list[dict]:
     k = bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw)
     torch.cuda.synchronize()
     p = bak.fused_projective_align_banded_plain(proj, *fixed, *mov, T0, **kw)
-    err = compare_align("banded align kernel", k, p)
+    err = compare_align(f"banded align kernel, {int(clip.valid.sum())} of {clip.capacity} lanes "
+                        f"valid, {int(meas.valid.sum())} fixed rows", k, p)
     B = pak.align_spec(proj, 1, 0, 0, 0, 0, 0).cols_padded
+    err = max(err, compare_tied(proj, B, bak.fused_projective_align_banded,
+                                bak.fused_projective_align_banded_plain, meas, clip, True, T0,
+                                kw, "banded align kernel"))
     ms = kernel_time_ms(
         "banded_align_kernel", device_time_ms,
         lambda mov=mov: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
-    paced_ms = cuda_time_ms(
-        lambda: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
+    paced_ms = kernel_time_ms(
+        "banded_align_kernel paced", cuda_time_ms,
+        lambda mov=mov: bak.fused_projective_align_banded(proj, *fixed, *mov, T0, **kw), 100)
     plain_ms = cuda_time_ms(
         lambda: bak.fused_projective_align_banded_plain(proj, *fixed, *mov, T0, **kw), 3)
     out.append(entry("banded_align_kernel", "banded_align_kernel.cu",
@@ -924,11 +949,31 @@ def check_align_kernels(proj, acfg, scene, X, S, meas, T0) -> list[dict]:
     k = pak.fused_projective_align(proj, *fixed, *mov, T0, **kw)
     torch.cuda.synchronize()
     p = pak.fused_projective_align_plain(proj, *fixed, *mov, T0, **kw)
-    err = compare_align("projective align kernel", k, p)
+    err = compare_align(f"projective align kernel, {int(clip.valid.sum())} of {clip.capacity} "
+                        "moving rows valid", k, p)
     B = sk.cols_padded(proj)
+    err = max(err, compare_tied(proj, B, pak.fused_projective_align,
+                                pak.fused_projective_align_plain, meas, clip, False, T0, kw,
+                                "projective align kernel"))
+    # the ball clipper hands the dense kernel the whole scene (8,192 rows),
+    # here in a seeded random order: valid rows lie both among the 4,096 the
+    # kernel packs in shared memory and past them, where it reads them from
+    # global memory at each pass
+    ball = clip_op.clip_ball(scene, X, S, 10.0)
+    order = torch.randperm(ball.capacity, generator=torch.Generator().manual_seed(0))
+    ball = ball.map(lambda x: x[order.to(x.device)].contiguous())
+    bmov = (ball.xy, ball.normal, ball.valid)
+    k = pak.fused_projective_align(proj, *fixed, *bmov, T0, **kw)
+    torch.cuda.synchronize()
+    err = max(err, compare_align(
+        f"projective align kernel, ball clip, {int(ball.valid.sum())} of {ball.capacity} moving "
+        f"rows valid, {int(ball.valid[4096:].sum())} of them past row 4,096", k,
+        pak.fused_projective_align_plain(proj, *fixed, *bmov, T0, **kw)))
     ms = kernel_time_ms("projective_align_kernel", device_time_ms,
                         lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
-    paced_ms = cuda_time_ms(lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
+    paced_ms = kernel_time_ms(
+        "projective_align_kernel paced", cuda_time_ms,
+        lambda: pak.fused_projective_align(proj, *fixed, *mov, T0, **kw), 100)
     plain_ms = cuda_time_ms(
         lambda: pak.fused_projective_align_plain(proj, *fixed, *mov, T0, **kw), 3)
     out.append(entry("projective_align_kernel", "projective_align_kernel.cu",

@@ -1,9 +1,10 @@
 """Every kernel call that ``chip_smoke.py`` times, built from other CUDA
 sources and from the package's own, timed in turns on the card; then the
-phase tables of kernels 2, 6, 7 and 8.
+phase tables of kernels 2, 4, 5, 6, 7 and 8.
 
     python -m srrg2_laser_slam_2d_tpu_torch.bench.compare_csrc --csrc DIR
-        [--routes] [--clusters] [--out chiprun_out/compare.json]
+        [--routes] [--clusters] [--only message-kernels]
+        [--out chiprun_out/compare.json]
 
 Run it from the repository root. ``DIR`` holds the other sources, e.g. an
 older commit's ``csrc`` unpacked under ``build/``::
@@ -17,19 +18,23 @@ run whose largest NN-ICP batch is kept, the MULTI drive), and every call
 they time (``chip_smoke.KERNEL_TIMINGS``) is timed again through the same
 wrapper from the other build and from the package's, in turns (other,
 own, own, other). Then a ``-DFRAME_PHASE_TIMING`` build of the package's
-kernels 2, 6, 7 and 8 gives their phase tables (thread 0 of block 0 stamps
-``clock64()`` at each phase boundary: SM cycles per launch of each phase),
-and each build's estimates on the corridor batch are held against the
-plain version's. Kernels 1 and 3's phase tables, barrier counts and
-beams-per-thread sweep are ``bench/frame_phases.py``'s.
+kernels 2, 4, 5, 6, 7 and 8 gives their phase tables (thread 0 of block 0
+stamps ``clock64()`` at each phase boundary: SM cycles per launch of each
+phase), and each build's estimates on the corridor batch are held against
+the plain version's. Kernels 1 and 3's phase tables, barrier counts and
+beams-per-thread sweep are ``bench/frame_phases.py``'s. ``--only
+message-kernels`` takes the per-message loop's kernels (8, 7, 5, 4) alone,
+for a short call; it takes neither ``--routes`` nor ``--clusters``.
 
-``--routes`` adds the per-message routes that launch kernels 7 and 8
-(``chip_smoke.py``'s B, B ``reuse_clip_canvas`` and C with the kernel
+``--routes`` adds the per-message routes that launch kernels 5, 4, 7 and 8
+(``chip_smoke.py``'s A, B, B ``reuse_clip_canvas`` and C with the kernel
 z-buffer, 600 corridor frames each) from both builds in turns: wall, track
 and relocalize phases, launches, and each kernel's calls by (points,
 clouds); then every shape of those histograms timed from both builds in
 turns on clouds cut from the tracked scene, and the launch-weighted time
-of each kernel over its route's histogram.
+of each kernel over its route's histogram. The aligners run at one shape
+a route (the scan against the clip), so theirs is the route's launches
+times each round's device time of that call.
 
 ``--clusters`` times the package's kernels 8 and 7 at each cluster size
 (1, 2, 4, 8 blocks a cloud, in place of ``cluster_blocks``' choice) on a
@@ -70,10 +75,22 @@ PHASE_NAMES = {
                      "pass 1: key atomics", "keys to the owners + barrier 1",
                      "owners: min + write", "barrier 2",
                      "pass 2: tied rows count at the owner, add their fields",
-                     "barrier 3 + owners divide ties")}
-ROUTES = ("B", "B reuse_clip_canvas", "C kernel z-buffer")
+                     "barrier 3 + owners divide ties"),
+    "banded_align_kernel": ("loads + fixed rows' fields + clear", "fixed z-buffer (2 barriers)",
+                            "canvas finish + lane packing",
+                            "passes: fields + gather + match (+ prior)",
+                            "reduction + warp 0's update (2 barriers)"),
+    "projective_align_kernel": ("loads + fixed rows' fields + clear",
+                                "fixed z-buffer (2 barriers)", "fixed cells + row packing",
+                                "passes: fields + atomicMin + barrier 1",
+                                "tie count + sums + barrier 2",
+                                "owners: match + reset (+ prior)",
+                                "reduction + warp 0's update (2 barriers)")}
+ROUTES = ("A", "B", "B reuse_clip_canvas", "C kernel z-buffer")
 # each kernel's histogram is read on the route named
 HISTOGRAM_ROUTE = {"projector_kernel": "C kernel z-buffer", "scene_kernel": "B"}
+# the aligners run at one shape per route: launches x the call's device time
+ALIGNER_ROUTE = {"banded_align_kernel": "A", "projective_align_kernel": "B"}
 
 
 class _LegacyProjectorParams(ctypes.Structure):
@@ -266,7 +283,8 @@ def cluster_sweep(smoke, device) -> list:
     return rows
 
 
-def compare(other: Path, smoke, routes: bool = False, clusters: bool = False) -> dict:
+def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
+            only: str | None = None) -> dict:
     """See the module docstring; ``smoke`` is the ``chip_smoke`` module."""
     from ..bench import corridor_e2e
     from ..ops import nn_icp_kernel as nk
@@ -285,7 +303,8 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False) ->
     logs = _cuda.compile_all(jobs)
     smoke.log(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     for key, text in logs.items():
-        if key.startswith(("own/nn", "own/multicue", "own/projector", "own/scene")):
+        if key.startswith(("own/nn", "own/multicue", "own/projector", "own/scene",
+                           "own/banded", "own/projective")):
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     smoke.log(f"  {key}: {line.strip()}")
@@ -294,16 +313,18 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False) ->
     mgr = config_mod.ConfigManager.read("configurations/corridor.json")
     slam_cfg, pcfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
     msgs = corridor_e2e.load_messages()
-    smoke.check_frame_kernel(msgs, slam_cfg, pcfg, device)
-    smoke.check_nn_icp_kernel(slam_cfg.detector, device)
-    smoke.check_stream_kernel(device)
+    if only is None:
+        smoke.check_frame_kernel(msgs, slam_cfg, pcfg, device)
+        smoke.check_nn_icp_kernel(slam_cfg.detector, device)
+        smoke.check_stream_kernel(device)
     smoke.check_message_kernels(msgs, slam_cfg, pcfg, device)
-    capture = smoke.DetectionCapture()
-    smoke.corridor_run("configurations/corridor.json", msgs, device, capture)
-    corridor_check = smoke.check_nn_icp_corridor(capture.batch)
-    dual, _ = smoke.dual_drive(device)
-    smoke.check_multicue_kernel(dual, device)
-    smoke.check_probes(dual, device)
+    if only is None:
+        capture = smoke.DetectionCapture()
+        smoke.corridor_run("configurations/corridor.json", msgs, device, capture)
+        corridor_check = smoke.check_nn_icp_corridor(capture.batch)
+        dual, _ = smoke.dual_drive(device)
+        smoke.check_multicue_kernel(dual, device)
+        smoke.check_probes(dual, device)
 
     rounds = []
     for label in ("other", "own", "own", "other"):
@@ -328,6 +349,10 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False) ->
                          "total_cycles": sum(cyc), "clock_ghz": sum(cyc) / ms * 1e-6}
         smoke.log(f"phases of {label}: {json.dumps(phases[label])}")
 
+    result = {"rounds": rounds, "phases": phases}
+    if only is not None:
+        use_build(*own)
+        return result
     # each build's estimates on the corridor batch against the plain version's
     fixed, moving, initials, kw = capture.batch
     plain = nk._result(*nk.fused_align_pairs_plain(
@@ -343,17 +368,17 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False) ->
                   f"{max(pair_err[label]):.3g}, pairs above 1e-3 "
                   f"{sum(e > 1e-3 for e in pair_err[label])}")
     use_build(*own)
-    result = {"rounds": rounds, "phases": phases, "corridor_batch": corridor_check,
-              "corridor_pair_err": pair_err}
+    result.update(corridor_batch=corridor_check, corridor_pair_err=pair_err)
     if routes:
-        result.update(routes_and_histograms(smoke, builds, mgr, msgs, device))
+        result.update(routes_and_histograms(smoke, builds, mgr, msgs, device, rounds))
     if clusters:
         result["clusters"] = cluster_sweep(smoke, device)
     return result
 
 
-def routes_and_histograms(smoke, builds, mgr, msgs, device) -> dict:
-    """``--routes``: see the module docstring."""
+def routes_and_histograms(smoke, builds, mgr, msgs, device, rounds) -> dict:
+    """``--routes``: see the module docstring. ``rounds``: the builds' device
+    times of every timed call, in turns."""
     slam_cfg, pcfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
     route_rows = route_rounds(smoke, builds, slam_cfg, pcfg, msgs, device)
     first_own = {r["route"]: r for r in route_rows if r["build"] == "own"}
@@ -373,7 +398,15 @@ def routes_and_histograms(smoke, builds, mgr, msgs, device) -> dict:
         smoke.log(f"histogram shapes, {label} build: {json.dumps(row)}")
         shape_rounds.append(row)
     use_build(*builds["own"])
-    return {"routes": route_rows, "histograms": histograms, "histogram_shapes": shape_rounds}
+    aligners = [{"build": r["build"],
+                 "launch_weighted_ms": {name: first_own[route]["launches"].get(name, 0)
+                                        * r["ms"][name]
+                                        for name, route in ALIGNER_ROUTE.items()}}
+                for r in rounds]
+    for row in aligners:
+        smoke.log(f"aligners over their routes: {json.dumps(row)}")
+    return {"routes": route_rows, "histograms": histograms, "histogram_shapes": shape_rounds,
+            "aligner_launch_weighted": aligners}
 
 
 def main() -> None:
@@ -385,8 +418,12 @@ def main() -> None:
                     help="also the routes that launch kernels 7 and 8, and their histograms")
     ap.add_argument("--clusters", action="store_true",
                     help="also the package's kernels 7 and 8 at each cluster size")
+    ap.add_argument("--only", choices=["message-kernels"], default=None,
+                    help="time only the per-message loop's kernels (8, 7, 5, 4); no routes")
     ap.add_argument("--out", default="chiprun_out/compare.json")
     args = ap.parse_args()
+    if args.only and (args.routes or args.clusters):
+        ap.error("--only takes neither --routes nor --clusters")
     if not torch.cuda.is_available():
         raise SystemExit("compare_csrc: no CUDA device")
     from .._device import card_description
@@ -396,7 +433,8 @@ def main() -> None:
     import chip_smoke
 
     result = {"card": card_description(torch.device("cuda")), "other": str(args.csrc),
-              **compare(args.csrc.resolve(), chip_smoke, args.routes, args.clusters)}
+              **compare(args.csrc.resolve(), chip_smoke, args.routes, args.clusters,
+                        args.only)}
     print(json.dumps(result))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:

@@ -103,3 +103,56 @@ def simulate(cfg: SyntheticConfig = SyntheticConfig(), device=None) -> Synthetic
     ranges = projector_op.ranges_from_canvas(canvas).cpu().numpy().astype(np.float32)
     return SyntheticDataset(config=cfg, scene=scene, robot_poses=robot_poses,
                             sensor_poses=sensor_poses, ranges=ranges, projection=proj)
+
+
+def _min_rows(xy: torch.Tensor, valid: torch.Tensor, view) -> torch.Tensor:
+    """[N, B] bool: row i lies at the closest depth of beam b, with the cloud
+    moved by the pose T of ``view`` = (projection, T, padded beams B) (the
+    aligners' moving z-buffer; T = 0 gives the fixed canvas)."""
+    from ..ops import _beam_kernels as bk
+
+    proj, T, B = view
+    x, y = xy[:, 0], xy[:, 1]
+    f = bk.moving_fields((x, y, x, y, valid), T.to(xy), proj)
+    _, hot, _ = bk.tied_min_onehot(f["d"], f["col_i"].to(torch.float32), f["okp"], B)
+    return hot > 0
+
+
+def tie_counts(cloud: Cloud, view) -> set:
+    """How many rows tie at the closest depth on each beam that ``cloud``
+    hits, seen as ``view`` = (projection, pose T, padded beams B) gives it."""
+    return set(_min_rows(cloud.xy, cloud.valid, view).sum(dim=0).tolist())
+
+
+def with_tied_rows(cloud: Cloud, seed: int, beam_indexed: bool = False, view=None) -> Cloud:
+    """``cloud`` with two- and three-way bitwise depth ties, the aligner
+    kernels' tie input: six valid rows (drawn with ``seed``) get one copy
+    and six two copies, each copy's normal turned by +-0.1 rad, so the mean
+    over the tied rows differs from every one of them. The copies are
+    appended or, for a beam-indexed cloud (one row per beam), written over
+    the rows that follow each drawn row. With ``view`` = (projection, pose
+    T, padded beams B) the rows are drawn among those alone at their
+    beam's closest depth there, so that every copy ties at the minimum."""
+    rng = np.random.default_rng(seed)
+    pool = cloud.valid.clone()
+    if view is not None:
+        at_min = _min_rows(cloud.xy, cloud.valid, view)
+        pool &= (at_min & (at_min.sum(dim=0) == 1)[None]).any(dim=1)
+    xy, nm, valid = (x.cpu().numpy().copy() for x in (cloud.xy, cloud.normal, cloud.valid))
+    picks = rng.choice(np.flatnonzero(pool.cpu().numpy()[:-3]), 12, replace=False)
+    c, s = np.cos(0.1), np.sin(0.1)
+    rows, cxy, cnm = [], [], []
+    for i, r in enumerate(picks):
+        for k in range(1 + (i >= 6)):
+            turn = np.array([[c, -s], [s, c]] if k == 0 else [[c, s], [-s, c]], np.float32)
+            rows.append(r + 1 + k)
+            cxy.append(xy[r])
+            cnm.append(turn @ nm[r])
+    if beam_indexed:
+        xy[rows], nm[rows], valid[rows] = cxy, cnm, True
+    else:
+        xy, nm = np.concatenate([xy, np.stack(cxy)]), np.concatenate([nm, np.stack(cnm)])
+        valid = np.concatenate([valid, np.ones(len(cxy), bool)])
+    dev = cloud.xy.device
+    return Cloud(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        xy.astype(np.float32), nm.astype(np.float32), valid)))

@@ -1,9 +1,11 @@
 // Device functions shared by the beam-space kernels: the fused
 // tracking-frame kernels frame_kernel.cu (one stream, with the local-map
 // split) and stream_kernel.cu (K independent streams, gather backends and
-// correspondence refresh), which share the whole frame step (frame_loop,
-// at the end of this file), and the aligners banded_align_kernel.cu,
-// projective_align_kernel.cu and multicue_align_kernel.cu. The arithmetic
+// correspondence refresh), which share the whole frame step (frame_loop),
+// and the aligners banded_align_kernel.cu, projective_align_kernel.cu
+// (which share the compute-once z-buffer zb_* and the end of a pass,
+// aligner_update, at the end of this file) and multicue_align_kernel.cu.
+// The arithmetic
 // follows the Pallas bodies (ops/pallas_frame.py:_frame_body,
 // ops/pallas_stream.py:_frame_body_b, ops/pallas_banded_align.py,
 // ops/pallas_projective_align.py) operation by operation; every source is
@@ -178,34 +180,6 @@ static cudaError_t zb_launch_clusters(void (*kernel)(Params...), int blocks, int
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block sum of NV values; every thread gets the totals in out[].
-// part: [32 * NV] shared scratch, tot: [NV] shared.
-template <int NV>
-__device__ void block_sum(float* v, float* part, float* tot, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NV; ++k) part[warp * NV + k] = v[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    float acc = 0.0f;
-    for (int w = 0; w < nwarps; ++w) acc += part[w * NV + threadIdx.x];
-    tot[threadIdx.x] = acc;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < NV; ++k) out[k] = tot[k];
-}
-
 struct Fields {
   float px, py, nx, ny, d;
   int col;
@@ -234,17 +208,15 @@ __device__ __forceinline__ Fields moving_fields(float mx, float my, float mnx, f
   return fields_at(mx, my, mnx, mny, mv, T, cosf(T[2]), sinf(T[2]), p);
 }
 
-// Dense z-buffer of a cloud of n rows into canvas rows [6][B] in shared
-// memory (ops/_beam_kernels.py
-// build_canvasT): per beam the closest depth (kBig where empty), the mean of
-// x, y, nx, ny over the points tied at that depth (each added as v * (1 /
-// count), as the TPU's normalised one-hot product does; exact for one or two
-// tied points, order-dependent in the last bit for three or more) and
-// has-point. With T != nullptr the rows are first moved by the pose T
-// (moving_fields), else they are taken as they are (the identity camera).
-// s_zmin [B] and s_cnt [B] are shared scratch; all threads call. The rows
-// come from a PackedCloud (the aligners' clouds) or RawRows (the frame
-// kernel's raw measurement layout).
+// Dense z-buffer of a cloud of n rows, at the identity camera, into canvas
+// rows [6][B] in shared memory (ops/_beam_kernels.py build_canvasT): per
+// beam the closest depth (kBig where empty), the mean of x, y, nx, ny over
+// the points tied at that depth (each added as v * (1 / count), as the
+// TPU's normalised one-hot product does; exact for one or two tied points,
+// order-dependent in the last bit for three or more) and has-point. s_zmin
+// [B] and s_cnt [B] are shared scratch; all threads call. The rows are
+// RawRows (the frame kernel's raw measurement layout); canvas_point gives
+// a row's fields, of those or of a PackedCloud (the aligners' clouds).
 struct PackedCloud {   // xy, normal: [n][2]; valid: bytes
   const float* xy;
   const float* nm;
@@ -263,11 +235,9 @@ struct RawRows {       // [n][8]: x, y, nx, ny, valid, ...
 };
 
 template <class Rows>
-__device__ __forceinline__ Fields canvas_point(const Rows& rows, int i, const float* T,
-                                               const FrameParams& p) {
+__device__ __forceinline__ Fields canvas_point(const Rows& rows, int i, const FrameParams& p) {
   float x, y, nx, ny, mv;
   rows.get(i, x, y, nx, ny, mv);
-  if (T != nullptr) return moving_fields(x, y, nx, ny, mv, T, p);
   Fields r;
   r.px = x; r.py = y; r.nx = nx; r.ny = ny;
   r.d = sqrtf(r.px * r.px + r.py * r.py);
@@ -279,9 +249,9 @@ __device__ __forceinline__ Fields canvas_point(const Rows& rows, int i, const fl
 }
 
 template <class Rows>
-__device__ __forceinline__ void build_canvas_rows(const Rows& rows, int n, const float* T,
-                                                  float* s_canvas, int* s_zmin, float* s_cnt,
-                                                  int B, const FrameParams& p) {
+__device__ __forceinline__ void build_canvas_rows(const Rows& rows, int n, float* s_canvas,
+                                                  int* s_zmin, float* s_cnt, int B,
+                                                  const FrameParams& p) {
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     s_zmin[b] = __float_as_int(kBig);
     s_cnt[b] = 0.0f;
@@ -290,17 +260,17 @@ __device__ __forceinline__ void build_canvas_rows(const Rows& rows, int n, const
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Fields fl = canvas_point(rows, i, T, p);
+    const Fields fl = canvas_point(rows, i, p);
     if (fl.okp) atomicMin(&s_zmin[fl.col], __float_as_int(fl.d));   // d >= 0
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Fields fl = canvas_point(rows, i, T, p);
+    const Fields fl = canvas_point(rows, i, p);
     if (fl.okp && fl.d <= __int_as_float(s_zmin[fl.col])) atomicAdd(&s_cnt[fl.col], 1.0f);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Fields fl = canvas_point(rows, i, T, p);
+    const Fields fl = canvas_point(rows, i, p);
     if (fl.okp && fl.d <= __int_as_float(s_zmin[fl.col])) {
       const float inv = 1.0f / s_cnt[fl.col];
       atomicAdd(&s_canvas[B + fl.col], fl.px * inv);
@@ -315,13 +285,6 @@ __device__ __forceinline__ void build_canvas_rows(const Rows& rows, int n, const
     s_canvas[5 * B + b] = (s_cnt[b] > 0.0f) ? 1.0f : 0.0f;
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ void build_canvasT(const float* xy, const float* nm,
-                                              const unsigned char* valid, int n,
-                                              const float* T, float* s_canvas, int* s_zmin,
-                                              float* s_cnt, int B, const FrameParams& p) {
-  build_canvas_rows(PackedCloud{xy, nm, valid}, n, T, s_canvas, s_zmin, s_cnt, B, p);
 }
 
 // A moving lane's matched canvas cell: depth, point, normal, has-point.
@@ -436,16 +399,9 @@ __device__ __forceinline__ void add_increments(float* h, const float* inc) {
   for (int i = 2; i < 9; ++i) h[i] = h[i] + inc[i];
 }
 
-__device__ __forceinline__ void add_odom_prior(float* h, const float* P, const float* T,
-                                               float w) {
-  float inc[9];
-  prior_increments(prior_terms(P, w), T, w, inc);
-  add_increments(h, inc);
-}
-
 // Cramer solve of H dx = -b (|det| <= 1e-20 gives 0) from the normal
-// equations h as above, then T <- dx * T (unwrapped) where `guard` holds.
-__device__ __forceinline__ void cramer_step(const float* h, bool guard, float* T) {
+// equations h as above; dx is 0 where `guard` fails.
+__device__ __forceinline__ void cramer_dx(const float* h, bool guard, float* dx) {
   float a00 = h[0], a01 = h[1], a02 = h[2], a11 = h[3], a12 = h[4], a22 = h[5];
   float a10 = a01, a20 = a02, a21 = a12;
   float r0 = -h[6], r1 = -h[7], r2 = -h[8];
@@ -458,19 +414,17 @@ __device__ __forceinline__ void cramer_step(const float* h, bool guard, float* T
               (a02 * a10 - a00 * a12) * r2) * inv_det;
   float x2 = ((a10 * a21 - a11 * a20) * r0 + (a01 * a20 - a00 * a21) * r1 +
               (a00 * a11 - a01 * a10) * r2) * inv_det;
-  float dx[3] = {guard ? x0 : 0.0f, guard ? x1 : 0.0f, guard ? x2 : 0.0f};
-  float Tn[3];
-  compose_s(dx, T, Tn);
-  T[0] = Tn[0]; T[1] = Tn[1]; T[2] = Tn[2];
+  dx[0] = guard ? x0 : 0.0f;
+  dx[1] = guard ? x1 : 0.0f;
+  dx[2] = guard ? x2 : 0.0f;
 }
 
-// One GN update from the 13 sums: odometry prior, Cramer solve, inlier
-// guard, pre-multiplied compose (unwrapped).
-__device__ __forceinline__ void gn_update(const float* s, const float* T0, float* T,
-                                          const FrameParams& p) {
-  float h[9] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
-  if (p.use_prior) add_odom_prior(h, T0, T, p.odom_weight);
-  cramer_step(h, s[9] >= p.min_inliers, T);
+// cramer_dx, then T <- dx * T (unwrapped).
+__device__ __forceinline__ void cramer_step(const float* h, bool guard, float* T) {
+  float dx[3], Tn[3];
+  cramer_dx(h, guard, dx);
+  compose_s(dx, T, Tn);
+  T[0] = Tn[0]; T[1] = Tn[1]; T[2] = Tn[2];
 }
 
 
@@ -833,8 +787,8 @@ __device__ __forceinline__ void frame_loop(float* smem, const float* __restrict_
     float* cv = s_canvas + (t & 1) * 6 * B;
     if (raw) {
       FRAME_SYNC();   // the last frame's merge is done with the shared scratch
-      build_canvas_rows(RawRows{meas + (size_t)t * p.meas_rows * 8}, p.meas_rows, nullptr, cv,
-                        s_zmin, s_src, B, p);
+      build_canvas_rows(RawRows{meas + (size_t)t * p.meas_rows * 8}, p.meas_rows, cv, s_zmin,
+                        s_src, B, p);
     }
     float T[3] = {guess.T0[0], guess.T0[1], guess.T0[2]};
     const PriorTerms prior = guess.prior;
@@ -1114,4 +1068,234 @@ __device__ __forceinline__ void frame_loop(float* smem, const float* __restrict_
     out_pose[(size_t)k * 16 + i] =
         i < 8 ? lanes[i] : (!kStreams ? ps0[i] : (i < 11 ? ps0[i] : 0.0f));
   }
+}
+
+// ===========================================================================
+// The compute-once block z-buffer of the aligners (kernels 5 and 4:
+// banded_align_kernel.cu, projective_align_kernel.cu): per beam the closest
+// depth, the mean of x, y, nx, ny over the rows tied at it, and has-point,
+// as build_canvas_rows gives them, but each row's fields are computed ONCE
+// (zb_rows, kept in registers: rows threadIdx.x + k * blockDim.x, k < R;
+// rows past R * blockDim.x, none at the routes' shapes, are computed again
+// in each sweep) and the z-buffer takes two barriers and no float atomics
+// (a float atomicAdd on shared memory is a compare-and-swap loop):
+//  1. zb_min: every row takes a 32-bit atomicMin on its depth bits (d >= 0,
+//     so the bits order as the depths) in its beam's slot; barrier;
+//  2. zb_add: every row at its beam's minimum adds one to the beam's count
+//     (an integer atomicAdd); the first to arrive stores its four fields,
+//     any later one (a tie, rare) adds its fields to the beam's tie sums;
+//     barrier;
+// then the beam's owner reads the cell (zb_cell): the first row's fields,
+// or where rows tie (first + tie sums) * (1 / count). Against the
+// reference's sum of field * (1 / count) (the TPU's normalised one-hot
+// product) this is exact for one or two tied rows (x * 0.5 + y * 0.5 ==
+// (x + y) * 0.5) and may differ in the last bit for three or more rows at
+// bitwise-equal depths on one beam.
+// Slots s_zb [10][B]: row 0 the depth bits (kBig where empty; read as
+// floats the row is the canvas depth row), rows 1-4 the first row's
+// fields, row 5 the count (int), rows 6-9 the tie sums. zb_clear empties a
+// slot (rows 1-4 need no clearing: they are read only where the count is
+// at least 1, so this pass wrote them); zb_reset empties one after use.
+// ===========================================================================
+constexpr int kZbRows = 10;
+
+__device__ __forceinline__ void zb_clear(float* s_zb, int B, int b) {
+  ((int*)s_zb)[b] = __float_as_int(kBig);
+  ((int*)s_zb)[5 * B + b] = 0;
+#pragma unroll
+  for (int r = 6; r < 10; ++r) s_zb[r * B + b] = 0.0f;
+}
+
+__device__ __forceinline__ int zb_count(const float* s_zb, int B, int b) {
+  return ((const int*)s_zb)[5 * B + b];
+}
+
+// Empty beam b's slot, whose count was `cnt` (the tie sums only where used).
+__device__ __forceinline__ void zb_reset(float* s_zb, int B, int b, int cnt) {
+  ((int*)s_zb)[b] = __float_as_int(kBig);
+  ((int*)s_zb)[5 * B + b] = 0;
+  if (cnt > 1) {
+#pragma unroll
+    for (int r = 6; r < 10; ++r) s_zb[r * B + b] = 0.0f;
+  }
+}
+
+// row_at(i) -> the Fields of row i, for this thread's first R rows.
+template <int R, class RowAt>
+__device__ __forceinline__ void zb_rows(RowAt row_at, int n, Fields* f) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    if (i < n) f[k] = row_at(i);
+    else f[k].okp = false;
+  }
+}
+
+// After zb_rows, with every slot empty; all threads call, then a barrier.
+template <int R, class RowAt>
+__device__ __forceinline__ void zb_min(RowAt row_at, int n, const Fields* f, float* s_zb) {
+  int* zmin = (int*)s_zb;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (f[k].okp) atomicMin(&zmin[f[k].col], __float_as_int(f[k].d));
+  for (int i = threadIdx.x + R * blockDim.x; i < n; i += blockDim.x) {
+    const Fields g = row_at(i);
+    if (g.okp) atomicMin(&zmin[g.col], __float_as_int(g.d));
+  }
+}
+
+// After zb_min's barrier; all threads call, then a barrier.
+template <int R, class RowAt>
+__device__ __forceinline__ void zb_add(RowAt row_at, int n, const Fields* f, float* s_zb,
+                                       int B) {
+  const int* zmin = (const int*)s_zb;
+  auto add = [&](const Fields& g) {
+    if (g.okp && g.d <= __int_as_float(zmin[g.col])) {
+      const int c = g.col;
+      if (atomicAdd(&((int*)s_zb)[5 * B + c], 1) == 0) {
+        s_zb[B + c] = g.px;
+        s_zb[2 * B + c] = g.py;
+        s_zb[3 * B + c] = g.nx;
+        s_zb[4 * B + c] = g.ny;
+      } else {
+        atomicAdd(&s_zb[6 * B + c], g.px);
+        atomicAdd(&s_zb[7 * B + c], g.py);
+        atomicAdd(&s_zb[8 * B + c], g.nx);
+        atomicAdd(&s_zb[9 * B + c], g.ny);
+      }
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < R; ++k) add(f[k]);
+  for (int i = threadIdx.x + R * blockDim.x; i < n; i += blockDim.x) add(row_at(i));
+}
+
+// Beam b's cell after zb_add's barrier: depth (kBig where empty), the mean
+// point and normal (zeros where empty), has-point.
+__device__ __forceinline__ Gathered zb_cell(const float* s_zb, int B, int b) {
+  const int cnt = zb_count(s_zb, B, b);
+  Gathered g = {s_zb[b], 0.0f, 0.0f, 0.0f, 0.0f, cnt > 0 ? 1.0f : 0.0f};
+  if (cnt > 0) {
+    g.bfx = s_zb[B + b];
+    g.bfy = s_zb[2 * B + b];
+    g.bfnx = s_zb[3 * B + b];
+    g.bfny = s_zb[4 * B + b];
+  }
+  if (cnt > 1) {
+    const float inv = 1.0f / (float)cnt;
+    g.bfx = (g.bfx + s_zb[6 * B + b]) * inv;
+    g.bfy = (g.bfy + s_zb[7 * B + b]) * inv;
+    g.bfnx = (g.bfnx + s_zb[8 * B + b]) * inv;
+    g.bfny = (g.bfny + s_zb[9 * B + b]) * inv;
+  }
+  return g;
+}
+
+// The end of an aligner pass (kernels 5 and 4), from each thread's terms
+// `acc`: the 13 sums of the pass, its record, and (but for the final pass)
+// the Gauss-Newton update of T; every thread returns with the new T and
+// its cosine c and sine s. Each warp sums its terms (warp_sums13) into
+// s_part [32][16]; after a barrier warp 0 ALONE adds the warp partials (in
+// block_sum13's order), records the
+// pass (chi, correspondences, inliers, inlier chi), adds the prior's
+// increments `inc` (taken before the barrier), solves, and writes T, cos T2
+// and sin T2 to s_pose [5]; a second barrier hands them to every warp. The
+// other warps skip the scalar chain that kernels 1 and 3 have every warp
+// repeat: with one block on the SM it costs them issue slots that the
+// second barrier does not. The update's four sines and cosines (of dx2 for
+// the compose, of the new T2 for the next pass) are taken side by side,
+// lanes 0-3 one each (compose_s's arithmetic otherwise), not one after
+// another.
+__device__ __forceinline__ void aligner_update(const float* acc, const float* inc, int it,
+                                               const FrameParams& p, float* T, float& c,
+                                               float& s, float* s_part, float* s_pose,
+                                               float* out_t, float* out_stats,
+                                               float* out_iters) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const float x0 = warp_sums13(acc, lane);
+  if (!(lane & 1) && (lane >> 1) < kTerms) s_part[warp * 16 + (lane >> 1)] = x0;
+  FRAME_SYNC();
+  if (warp == 0) {
+    const int k = lane & 15;
+    float a = 0.0f;
+    if (k < kTerms) {
+#pragma unroll 4
+      for (int w = lane >> 4; w < nw; w += 2) a += s_part[w * 16 + k];
+    }
+    a = a + __shfl_xor_sync(kFull, a, 16);
+    float sums[kTerms];
+#pragma unroll
+    for (int t = 0; t < kTerms; ++t) sums[t] = __shfl_sync(kFull, a, t);
+    const float rec[4] = {sums[10], sums[9], sums[12], sums[11]};
+    if (it == p.iterations) {
+      if (lane < 3) out_t[lane] = T[lane];
+      if (lane < 4) out_stats[lane] = rec[lane];
+    } else {
+      if (lane < 4) out_iters[lane * 128 + it] = rec[lane];
+      float h[9] = {sums[0], sums[1], sums[2], sums[3], sums[4],
+                    sums[5], sums[6], sums[7], sums[8]};
+      if (p.use_prior) add_increments(h, inc);
+      float dx[3];
+      cramer_dx(h, sums[9] >= p.min_inliers, dx);
+      const float t2 = dx[2] + T[2];
+      const float arg = lane < 2 ? dx[2] : t2;
+      const float v = (lane & 1) ? sinf(arg) : cosf(arg);
+      const float ca = __shfl_sync(kFull, v, 0), sa = __shfl_sync(kFull, v, 1);
+      const float o0 = dx[0] + ca * T[0] - sa * T[1];
+      const float o1 = dx[1] + sa * T[0] + ca * T[1];
+      if (lane == 2) s_pose[3] = v;
+      if (lane == 3) s_pose[4] = v;
+      T[0] = o0; T[1] = o1; T[2] = t2;
+    }
+    if (lane == 0) {
+      s_pose[0] = T[0];
+      s_pose[1] = T[1];
+      s_pose[2] = T[2];
+    }
+  }
+  FRAME_SYNC();
+  T[0] = s_pose[0];
+  T[1] = s_pose[1];
+  T[2] = s_pose[2];
+  c = s_pose[3];
+  s = s_pose[4];
+}
+
+// The aligners' launch constants, in warp 0 (which alone solves): the
+// prior's constants (prior_terms' arithmetic) and, in s_pose[3..4], the
+// cosine and sine of the initial angle T2 for the first pass; the six
+// sines and cosines are taken side by side, lanes 0-5 one each.
+__device__ __forceinline__ PriorTerms aligner_constants(const float* P, float T2,
+                                                        const FrameParams& p, float* s_pose) {
+  const int lane = threadIdx.x & 31;
+  const float arg = lane < 2 ? -P[2] : (lane < 4 ? P[2] : T2);
+  const float v = (lane & 1) ? sinf(arg) : cosf(arg);
+  if (lane == 4) s_pose[3] = v;
+  if (lane == 5) s_pose[4] = v;
+  PriorTerms c = {};
+  const float ca = __shfl_sync(kFull, v, 0), sa = __shfl_sync(kFull, v, 1);
+  const float cp = __shfl_sync(kFull, v, 2), sp = __shfl_sync(kFull, v, 3);
+  if (!p.use_prior) return c;
+  const float w = p.odom_weight;
+  c.P2 = P[2];
+  c.ca = ca;
+  c.sa = sa;
+  c.atx = -(cp * P[0] + sp * P[1]);
+  c.aty = -(-sp * P[0] + cp * P[1]);
+  c.hdiag = w * (c.ca * c.ca + c.sa * c.sa);
+  return c;
+}
+
+// The aligners' shared memory is more than the 48 KB a launch gets without
+// asking: raise the kernel's limit to `bytes` once per device and process
+// (`done`: a bit per device).
+template <class Kernel>
+static cudaError_t smem_limit_once(Kernel kernel, size_t bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && ((done >> dev) & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return err;
 }

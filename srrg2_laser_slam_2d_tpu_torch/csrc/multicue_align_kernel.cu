@@ -54,13 +54,13 @@
 // kernels 1 and 3 do) cost more issue slots than the second barrier:
 // 66.4 us against 60.5 us a launch, timed in turns in one process on an
 // NVIDIA H100 80GB HBM3 at 700 W. Where it differs from the
-// kernels sharing frame_common.cuh: their gn_update guards on
+// kernels sharing frame_common.cuh: their update guards on
 // correspondences (s[9]) and knows neither damping nor min_corr, and their
 // prior enters the cue-frame system; here the guard counts inliers and
 // correspondences, the damping is added, and the prior enters after the
 // remap. So the update is this file's own (multicue_update); it shares only
 // the prior terms and the Cramer step (prior_terms, prior_increments,
-// cramer_step) with gn_update. Angles are not wrapped (compose_s);
+// cramer_step) with theirs. Angles are not wrapped (compose_s);
 // inverse(e_c) is the unwrapped inverse, so the rear cue at theta = pi has
 // -pi there, as in the TPU kernel. Built with --fmad=false; beams come from
 // the polynomial atan2 of fields_at.
@@ -161,7 +161,7 @@ __device__ void build_cue_canvases(const float* xy, const float* nm,
 #pragma unroll
   for (int k = 0; k < kCanvasRegs; ++k) {
     const int i = threadIdx.x + k * blockDim.x;
-    if (i < total) kept[k] = canvas_point(rows, i, nullptr, p);
+    if (i < total) kept[k] = canvas_point(rows, i, p);
     else kept[k].okp = false;
   }
   const int rest = threadIdx.x + kCanvasRegs * blockDim.x;
@@ -195,15 +195,15 @@ __device__ void build_cue_canvases(const float* xy, const float* nm,
   };
 #pragma unroll
   for (int k = 0; k < kCanvasRegs; ++k) zmin(kept[k], threadIdx.x + k * blockDim.x);
-  for (int i = rest; i < total; i += blockDim.x) zmin(canvas_point(rows, i, nullptr, p), i);
+  for (int i = rest; i < total; i += blockDim.x) zmin(canvas_point(rows, i, p), i);
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < kCanvasRegs; ++k) count(kept[k], threadIdx.x + k * blockDim.x);
-  for (int i = rest; i < total; i += blockDim.x) count(canvas_point(rows, i, nullptr, p), i);
+  for (int i = rest; i < total; i += blockDim.x) count(canvas_point(rows, i, p), i);
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < kCanvasRegs; ++k) add(kept[k], threadIdx.x + k * blockDim.x);
-  for (int i = rest; i < total; i += blockDim.x) add(canvas_point(rows, i, nullptr, p), i);
+  for (int i = rest; i < total; i += blockDim.x) add(canvas_point(rows, i, p), i);
   __syncthreads();
   for (int b = threadIdx.x; b < C * B; b += blockDim.x) {
     const int c = b / B, k = b % B;

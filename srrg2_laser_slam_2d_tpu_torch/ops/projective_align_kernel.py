@@ -15,6 +15,7 @@ compares).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -28,6 +29,7 @@ from .projector_kernel import cols_padded
 # launches of the CUDA kernel (reset by callers that count a run)
 launches = 0
 MAX_ITERATIONS = 128
+MAX_BEAMS = 1024          # padded beams: one block of at most 1,024 lanes
 
 
 class ProjAlignResult(NamedTuple):
@@ -119,29 +121,55 @@ def fused_projective_align_plain(proj, fixed_xy, fixed_normal, fixed_valid,
     return run_passes(stats_of, spec, initial, initial if odom_prior is None else odom_prior)
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_params(spec: FrameSpec, B: int):
+    """The kernels' parameter struct for ``spec`` at B padded beams, built
+    once per (spec, B); the C entry points copy it at each launch."""
+    params = _params(spec, 1)
+    params.B = B
+    return params
+
+
+def aligner_inputs(spec: FrameSpec, B: int, fixed, moving, initial, prior, device):
+    """The arguments as the kernels take them, or a ValueError: at most
+    ``MAX_BEAMS`` padded beams (any number of rows); every cloud field a
+    contiguous tensor of its type and shape on ``device`` (float32 [N, 2]
+    xy and normal, bool [N] valid); ``initial`` and ``prior`` [3] there too
+    (cast to float32)."""
+    if B > MAX_BEAMS:
+        raise ValueError(f"{spec.projection.cols} beams ({B} padded): the kernel holds at most "
+                         f"{MAX_BEAMS}")
+    for name, cloud in (("fixed", fixed), ("moving", moving)):
+        for field, t in zip(("xy", "normal", "valid"), cloud):
+            if not t.is_contiguous():
+                raise ValueError(f"{name}.{field}: the kernel needs a contiguous tensor")
+    fxy, fnm, fv = _cuda.cloud_tensors("fixed", *fixed, device)
+    mxy, mnm, mv = _cuda.cloud_tensors("moving", *moving, device)
+    t0 = initial.to(torch.float32).contiguous()
+    prior_t = prior.to(torch.float32).contiguous()
+    _cuda.check_tensor("initial", t0, (3,), device)
+    _cuda.check_tensor("odom_prior", prior_t, (3,), device)
+    return fxy, fnm, fv, mxy, mnm, mv, t0, prior_t
+
+
 def launch_aligner(lib_name: str, fn_name: str, spec: FrameSpec, B: int, fixed, moving,
                    initial, prior) -> ProjAlignResult:
     """Launch one of the two aligner kernels (they share a C interface)."""
     dev = fixed[0].device
-    fxy, fnm, fv = _cuda.cloud_tensors("fixed", *fixed, dev)
-    mxy, mnm, mv = _cuda.cloud_tensors("moving", *moving, dev)
-    t0 = initial.to(torch.float32).contiguous()
-    prior_t = prior.to(torch.float32).contiguous()
-    _cuda.check_tensor("initial", t0, (3,), dev)
-    _cuda.check_tensor("odom_prior", prior_t, (3,), dev)
-    if B > 1024:
-        raise ValueError(f"{spec.projection.cols} beams: the kernel holds at most 1024")
+    fxy, fnm, fv, mxy, mnm, mv, t0, prior_t = aligner_inputs(spec, B, fixed, moving, initial,
+                                                             prior, dev)
     out = torch.empty(8 + 4 * MAX_ITERATIONS, dtype=torch.float32, device=dev)
-    params = _params(spec, 1)
-    params.B = B
-    lib = _cuda.load(lib_name)
     base = out.data_ptr()
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn_name)(
-            fxy.data_ptr(), fnm.data_ptr(), fv.data_ptr(), fxy.shape[0],
+    args = (fxy.data_ptr(), fnm.data_ptr(), fv.data_ptr(), fxy.shape[0],
             mxy.data_ptr(), mnm.data_ptr(), mv.data_ptr(), mxy.shape[0],
             t0.data_ptr(), prior_t.data_ptr(), base, base + 16, base + 32,
-            ctypes.addressof(params), _cuda.stream_of(dev))
+            ctypes.addressof(_launch_params(spec, B)), _cuda.stream_of(dev))
+    fn = getattr(_cuda.load(lib_name), fn_name)
+    if dev.index == torch.cuda.current_device():   # no device guard where it is current
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{lib_name} launch failed: {_cuda.error_string(err)}")
     iters = out[8:].reshape(4, MAX_ITERATIONS)[:, : spec.iterations].T

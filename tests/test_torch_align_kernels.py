@@ -23,6 +23,7 @@ from srrg2_laser_slam_2d_tpu.ops import pallas_banded_align as jba
 from srrg2_laser_slam_2d_tpu.ops import pallas_projective_align as jpa
 from srrg2_laser_slam_2d_tpu.ops import pallas_scene as jps
 from srrg2_laser_slam_2d_tpu.ops.projector import PolarProjection as JProjection
+from srrg2_laser_slam_2d_tpu_torch.bench.synthetic import tie_counts, with_tied_rows
 from srrg2_laser_slam_2d_tpu_torch.models import tracker as ttracker
 from srrg2_laser_slam_2d_tpu_torch.ops import _beam_kernels as tbk
 from srrg2_laser_slam_2d_tpu_torch.ops import banded_align_kernel as bak
@@ -55,9 +56,9 @@ def pair():
     return jax.tree.map(lambda x: x[1], meas), st
 
 
-def _compare(j, t):
+def _compare(j, t, min_corr=50):
     np.testing.assert_allclose(t.estimate.numpy(), np.asarray(j.estimate), atol=1e-5)
-    assert float(t.num_corr) == float(j.num_corr) > 50
+    assert float(t.num_corr) == float(j.num_corr) > min_corr
     assert float(t.num_inliers) == float(j.num_inliers)
     np.testing.assert_allclose(float(t.chi), float(j.chi), rtol=1e-3)
     np.testing.assert_allclose(float(t.chi_inl_sum), float(j.chi_inl_sum), rtol=1e-3)
@@ -109,6 +110,51 @@ def test_dense_plain_version_matches_pallas_interpret(pair, clip_rows):
     _compare(j, t)
 
 
+def _with_ties(xy, nm, valid, seed, beam_indexed=False):
+    """numpy in, numpy out: ``bench.synthetic.with_tied_rows`` of the cloud."""
+    c = with_tied_rows(Cloud(_t(xy), _t(nm), _t(valid)), seed, beam_indexed)
+    return c.xy.numpy(), c.normal.numpy(), c.valid.numpy()
+
+
+def _tie_counts(xy, valid, T, proj: PolarProjection, B: int) -> set:
+    """How many rows tie at the closest depth on each beam the cloud hits,
+    moved by T."""
+    return tie_counts(Cloud(_t(xy), _t(xy), _t(valid)), (proj, _t(T), B))
+
+
+@pytest.mark.parametrize("odom_weight", [1.0, 0.0], ids=["prior", "no-prior"])
+@pytest.mark.parametrize("beams", [128, 256])
+@pytest.mark.parametrize("kernel", ["dense", "banded"])
+def test_plain_versions_match_pallas_interpret_on_tied_depths(pair, kernel, beams,
+                                                              odom_weight):
+    """Both aligners on clouds with duplicated rows: two- and three-way
+    bitwise depth ties on some beams of the fixed canvas and (dense) of the
+    moving z-buffer, where the tied rows' normals differ. Pins the tie rule
+    (the mean over the tied rows) that the kernels are held to on the card."""
+    m1, st = pair
+    jp = JProjection.make(cols=beams, angle_min=-np.pi, angle_max=np.pi, range_min=0.3,
+                          range_max=20.0)
+    tp = PolarProjection(*jp)
+    clip = jclip.clip_projective(jp, st.scene, st.robot_in_local_map, st.sensor_in_robot, 0.0)
+    fixed = _with_ties(m1.xy, m1.normal, m1.valid, seed=1)
+    moving = _with_ties(clip.xy, clip.normal, clip.valid, seed=2,
+                        beam_indexed=kernel == "banded")
+    B = max(-(-beams // 128) * 128, 256 if kernel == "banded" else 0)
+    assert {2, 3} <= _tie_counts(fixed[0], fixed[2], np.zeros(3, np.float32), tp, B)
+    if kernel == "dense":
+        assert {2, 3} <= _tie_counts(moving[0], moving[2], T0, tp, B)
+    jfn, tfn, mod = ((jpa.fused_projective_align, pak.fused_projective_align, pak)
+                     if kernel == "dense" else
+                     (jba.fused_projective_align_banded, bak.fused_projective_align_banded, bak))
+    kw = dict(KW, odom_weight=odom_weight)
+    j = jfn(jp, *(jnp.asarray(a) for a in fixed + moving), jnp.asarray(T0),
+            odom_prior=jnp.asarray(T0), interpret=True, **kw)
+    before = mod.launches
+    t = tfn(tp, *(_t(a) for a in fixed + moving), _t(T0), odom_prior=_t(T0), **kw)
+    assert mod.launches == before
+    _compare(j, t, min_corr=40 if beams == 128 else 50)   # 128 beams see fewer cells
+
+
 def test_build_canvas_matches_jax_and_averages_ties(pair):
     m1, _ = pair
     fgeo = jba._pack(m1.xy, m1.normal, m1.valid)
@@ -145,6 +191,54 @@ def test_iteration_limit_and_beam_indexing_are_checked(pair):
     for fn in (pak.fused_projective_align, bak.fused_projective_align_banded):
         with pytest.raises(ValueError, match="device"):
             fn(TP, *meta)
+
+
+def _refused(case):
+    """Arguments of ``aligner_inputs`` with one thing the kernels do not take."""
+    spec = pak.align_spec(TP, 4, 0.5, 0.8, 0.05, 10, 1.0)
+    xy = torch.zeros(64, 2)
+    nm = torch.zeros(64, 2)
+    valid = torch.ones(64, dtype=torch.bool)
+    fixed, moving, B = [xy, nm, valid], [xy, nm, valid], spec.cols_padded
+    t0, prior = torch.zeros(3), torch.zeros(3)
+    if case == "beams":
+        B = 1152
+    elif case == "non-contiguous":
+        moving[1] = torch.zeros(2, 64).T
+    elif case == "float64":
+        fixed[0] = xy.double()
+    elif case == "valid-bytes":
+        moving[2] = valid.to(torch.uint8)
+    elif case == "shape":
+        fixed[1] = torch.zeros(64, 3)
+    elif case == "initial":
+        t0 = torch.zeros(4)
+    elif case == "prior":
+        prior = torch.zeros(3, 1)
+    return spec, B, fixed, moving, t0, prior
+
+
+@pytest.mark.parametrize("case", ["beams", "prior", "non-contiguous", "float64",
+                                  "valid-bytes", "shape", "initial"])
+def test_wrapper_refuses_what_the_kernels_do_not_take(case):
+    """The checks that ``launch_aligner`` makes before any launch, on the
+    host (here with CPU tensors, which the wrappers never hand to a kernel)."""
+    spec, B, fixed, moving, t0, prior = _refused(case)
+    with pytest.raises(ValueError):
+        pak.aligner_inputs(spec, B, fixed, moving, t0, prior, torch.device("cpu"))
+
+
+def test_wrapper_takes_valid_inputs_and_builds_its_parameters_once():
+    spec, B, fixed, moving, t0, prior = _refused("none")
+    out = pak.aligner_inputs(spec, B, fixed, moving, t0.double(), prior, torch.device("cpu"))
+    assert len(out) == 8 and out[6].dtype == torch.float32
+    # any number of moving rows: a ball clip hands the dense kernel the whole scene
+    scene = [torch.zeros(8192, 2), torch.zeros(8192, 2), torch.ones(8192, dtype=torch.bool)]
+    assert pak.aligner_inputs(spec, B, fixed, scene, t0, prior, torch.device("cpu"))[3].shape \
+        == (8192, 2)
+    params = pak._launch_params(spec, B)
+    assert pak._launch_params(spec, B) is params
+    assert (params.B, params.iterations, params.use_prior) == (256, 4, 1)
 
 
 def test_fused_scene_ops_with_banded_aligner_is_refused_as_in_jax():

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from srrg2_laser_slam_2d_tpu_torch.bench.synthetic import tie_counts, with_tied_rows
 from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
 from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import (
     LaserModel, PreprocessorConfig, ScanPreprocessor)
@@ -481,18 +482,43 @@ def room_scans(card):
     return [clouds.map(lambda x: x[k].contiguous()) for k in range(T)], poses
 
 
-def _tracker_config(**flags):
+def _tracker_config(cols: int = 400, scene_capacity: int = 2048, **flags):
     # 400 beams against scans of 361: on the scans' own grid every point would
     # sit on a beam-bin edge, where the card's and the host's atan2 may differ
-    proj = projector_op.PolarProjection.make(cols=400, angle_min=-np.pi, angle_max=np.pi,
+    proj = projector_op.PolarProjection.make(cols=cols, angle_min=-np.pi, angle_max=np.pi,
                                              range_min=0.3, range_max=20.0)
-    return tr.TrackerConfig(scene_capacity=2048, projection=proj, **flags)
+    return tr.TrackerConfig(scene_capacity=scene_capacity, projection=proj, **flags)
 
 
-@pytest.mark.parametrize("banded", [True, False])
-def test_align_kernels_match_plain_on_card(card, room_scans, banded):
+ALIGN_CASES = {
+    "routes": {}, "ties": dict(ties=True), "beams128": dict(cols=128),
+    "beams1024": dict(cols=1024), "all-invalid": dict(all_invalid=True),
+    "iterations0": dict(iterations=0), "iterations128": dict(iterations=128),
+    "no-prior": dict(odom_weight=0.0), "rows-past-threads": dict(triple_rows=True),
+    "ball-clip": dict(ball=True)}
+DENSE_ONLY = ("rows-past-threads", "ball-clip")
+
+
+@pytest.mark.parametrize("banded, case", [(b, c) for b in (True, False) for c in ALIGN_CASES
+                                          if not (b and c in DENSE_ONLY)],
+                         ids=lambda v: v if isinstance(v, str) else ("banded" if v else "dense"))
+def test_align_kernels_match_plain_on_card(card, room_scans, banded, case):
+    """Both aligner kernels against their plain versions, held to
+    ``chip_smoke.compare_align``'s tolerances: estimate within 1e-5, every
+    pass's counts within 1, chi within rtol 1e-3. Cases: the routes'
+    settings (400 beams, 10 iterations, odometry weight 1), forced two- and
+    three-way depth ties, 128 and 1,024 beams, an all-invalid moving cloud,
+    0 and 128 iterations, no odometry prior; the dense kernel also on three
+    times the clip's rows (copies 1 cm off), more valid rows than threads,
+    which it packs in chunks and reads from shared memory at each pass, and
+    on the ball clipper's moving cloud, the whole 8,192-row scene, its rows
+    in a seeded random order, so that valid rows lie both among the 4,096
+    the kernel packs in shared memory and past them, where it reads them
+    from global memory."""
+    o = dict(dict(cols=400, ties=False, all_invalid=False, iterations=10, odom_weight=1.0,
+                  triple_rows=False, ball=False), **ALIGN_CASES[case])
     clouds, poses = room_scans
-    cfg = _tracker_config()
+    cfg = _tracker_config(o["cols"], 8192 if o["ball"] else 2048)
     st = tr.populate(cfg, tr.init_state(cfg, device=card), clouds[0])
     S = st.sensor_in_robot
     if banded:
@@ -502,25 +528,57 @@ def test_align_kernels_match_plain_on_card(card, room_scans, banded):
     else:
         mod, fn, plain = pak, pak.fused_projective_align, pak.fused_projective_align_plain
         clip = sck.clip_projective(cfg.projection, st.scene, st.robot_in_local_map, S)
-    t0 = torch.tensor([-0.2, -0.1, -0.03], device=card)
+    if o["ball"]:
+        clip = clip_op.clip_ball(st.scene, st.robot_in_local_map, S, cfg.ball_max_range)
+        order = torch.randperm(8192, generator=torch.Generator().manual_seed(0)).to(card)
+        clip = clip.map(lambda x: x[order])
+        # packed rows fewer than the threads: global rows fill the rest of a pass's first round
+        assert clip.capacity == 8192 and 0 < int(clip.valid[:4096].sum()) < 512
+        assert int(clip.valid[4096:].sum()) > 0
+    clip = clip.map(lambda x: x.contiguous())
     m = clouds[1]
-    args = (cfg.projection, m.xy, m.normal, m.valid, clip.xy.contiguous(),
-            clip.normal.contiguous(), clip.valid.contiguous(), t0)
-    kw = dict(odom_prior=t0, iterations=10, chi_threshold=0.05, odom_weight=1.0)
+    t0 = torch.tensor([-0.2, -0.1, -0.03], device=card)
+    if o["ties"]:
+        B = pk.cols_padded(cfg.projection)
+        views = {"fixed": (cfg.projection, torch.zeros(3, device=card), B),
+                 "moving": (cfg.projection, t0, B)}
+        m = with_tied_rows(m, 1, view=views["fixed"])
+        clip = with_tied_rows(clip, 2, beam_indexed=banded,
+                              view=None if banded else views["moving"])
+        assert {2, 3} <= tie_counts(m, views["fixed"])
+        if not banded:
+            assert {2, 3} <= tie_counts(clip, views["moving"])
+    if o["all_invalid"]:
+        clip = Cloud(clip.xy, clip.normal, torch.zeros_like(clip.valid))
+    if o["triple_rows"]:
+        clip = Cloud(torch.cat([clip.xy, clip.xy + 0.01, clip.xy - 0.01]),
+                     torch.cat([clip.normal] * 3), torch.cat([clip.valid] * 3))
+        assert int(clip.valid.sum()) > 512   # the dense kernel's threads at 400 beams
+    args = (cfg.projection, m.xy, m.normal, m.valid, clip.xy, clip.normal, clip.valid, t0)
+    its = o["iterations"]
+    kw = dict(odom_prior=t0, iterations=its, chi_threshold=0.05, odom_weight=o["odom_weight"])
     before = mod.launches
     k = fn(*args, **kw)
     torch.cuda.synchronize()
     assert mod.launches == before + 1
     p = plain(*args, **kw)
     np.testing.assert_allclose(k.estimate.cpu().numpy(), p.estimate.cpu().numpy(), atol=1e-5)
-    assert float(p.num_inliers) > 100
+    if o["all_invalid"]:
+        assert float(p.num_corr) == float(k.num_corr) == 0.0
+        np.testing.assert_allclose(k.estimate.cpu().numpy(), t0.cpu().numpy(), atol=1e-6)
+    else:
+        assert float(p.num_inliers) > (40 if o["cols"] == 128 else 100)
     assert abs(float(k.num_corr) - float(p.num_corr)) <= 1
     assert abs(float(k.num_inliers) - float(p.num_inliers)) <= 1
     np.testing.assert_allclose(float(k.chi), float(p.chi), rtol=1e-3)
-    assert k.iter_stats.shape == (10, 4)
-    assert float((k.iter_stats[:, 1:3] - p.iter_stats[:, 1:3]).abs().max()) <= 1
-    np.testing.assert_allclose(k.iter_stats[:, 0].cpu().numpy(), p.iter_stats[:, 0].cpu().numpy(),
-                               rtol=1e-3)
+    assert k.iter_stats.shape == (its, 4)
+    if its:
+        assert float((k.iter_stats[:, 1:3] - p.iter_stats[:, 1:3]).abs().max()) <= 1
+        np.testing.assert_allclose(k.iter_stats[:, 0].cpu().numpy(),
+                                   p.iter_stats[:, 0].cpu().numpy(), rtol=1e-3)
+        # the inlier chi as compare_align holds it (relative to max(|plain|, 1e-3))
+        inl_k, inl_p = k.iter_stats[:, 3], p.iter_stats[:, 3]
+        assert float(((inl_k - inl_p).abs() / inl_p.abs().clamp(min=1e-3)).max()) <= 1e-3
 
 
 @pytest.mark.parametrize("flags", [
