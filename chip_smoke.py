@@ -73,7 +73,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain version on a ``MultiCueTracker``'s scene after 10 packs (the
      clips of both cues, 2 x 721 rows, against the next pack); the two probe
      kernels against their plain versions (the shift z-buffer on 20 scans'
-     cells, the banded gather in both forms at K = 8 and 32); the three
+     cells and on cells with forced depth ties, the banded gather in both
+     forms at K = 1, 8 and 32 and at 256 lanes), each beside the device time
+     of an empty kernel at its launch shape, the gather at one pass also
+     beside ``torch.gather``; the three
      rates of ``bench/multicue_bench`` (128 frames, one pass after the
      warm-up) with the kernel's share of a fused step; then the MULTI loop
      through ``SlamRunner(scan_topics=...)`` under ``multi_slam`` and the
@@ -82,8 +85,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ATE <= single-cue ATE and a graph that closes;
   10. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
      launches on its main path (the probes: their own probe runs), its error
-     against the plain version, its time, the plain version's time and its
-     bound.
+     against the plain version, its time, the plain version's time, its
+     bound and the time of one PyTorch call that computes the same function
+     where there is one (the gather probe's ``torch.gather``).
 The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
 ``chiprun_out/chip_smoke.json``. Nothing of the earlier paths is cut.
 ``--only message-kernels`` / ``--only message-path`` / ``--only multi`` run
@@ -133,8 +137,9 @@ at a depth are averaged exactly). The aligner kernels' estimates agree
 within 1e-5, the correspondence and inlier counts of every pass are equal
 or 1 apart (a beam at a gate; 2 for the multi-cue aligner, which matches
 twice the rows), chi within rtol 1e-3. The shift z-buffer probe's winners
-are EQUAL and its depths within 1e-6; the gather probe is EQUAL (the same
-additions in the same order). The per-message, multi-cue and probe
+are EQUAL and its depths within 1e-6, with and without forced ties; the
+gather probe is EQUAL (the same additions in the same order), and at one
+pass EQUAL to ``torch.gather``. The per-message, multi-cue and probe
 kernels run for microseconds to tens of microseconds, less than the host takes to enqueue them, so
 their ``ms`` is the device time with the queue kept full behind three large
 matrix products (``device_time_ms``); ``host_paced_ms`` is the same calls at
@@ -1515,20 +1520,46 @@ def multi_loop_run(msgs, gt_poses, device) -> dict:
     return out
 
 
+def sm_clock_mhz() -> dict:
+    """The card's SM clock now and its maximum, MHz (``nvidia-smi``)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    now, top = (float(v) for v in out.strip().splitlines()[0].split(","))
+    return {"sm": now, "max_sm": top}
+
+
+# the gather probe's cases held bit for bit to the plain version, both forms:
+# (K, lanes, shift); the last two are the CPU tests' size
+GATHER_CASES = ((1, 768, 64), (8, 768, 64), (32, 768, 64), (2, 256, 16), (8, 256, 16))
+
+
 def check_probes(msgs, device) -> list[dict]:
     """The two probe kernels against their plain versions at full width.
     The shift z-buffer: the cells of each of the first 20 front scans
     (721-beam canvas, B = 768) moved by a small pose, winners and validity
     EQUAL, depths within 1e-6, and as the TPU test holds it, 99.5 % of the
-    beams agree with the projector's z-buffer. The gather: both forms at K =
-    8 and 32 (``bench/exp_gather.run``) EQUAL to the plain version."""
+    beams agree with the projector's z-buffer; then the first scan's cells
+    with forced two- and three-way depth ties at beams' minima
+    (``bench/synthetic.with_tied_rows``), whose tie counts are asserted,
+    held to the plain version the same way. The gather: both forms at K =
+    8 and 32 (``bench/exp_gather.run``, the launches counted) and over
+    ``GATHER_CASES`` EQUAL to the plain version; its time at 10 passes and
+    at 1 beside ``torch.gather``'s (the function at 1 pass). Both: the
+    device time of an empty kernel at the probe's launch shape (the floor
+    under a launch), and for the roll form the floor its shared-memory
+    loads set."""
     from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather
+    from srrg2_laser_slam_2d_tpu_torch.bench.synthetic import with_tied_rows
     from srrg2_laser_slam_2d_tpu_torch.ops import beam_zbuffer_kernel as bzk
     from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
     from srrg2_laser_slam_2d_tpu_torch.utils import cloud as cloud_op
     from srrg2_laser_slam_2d_tpu_torch.utils import presets
 
     proj = presets.reference_projection(MULTI_BEAMS)
+    B = bzk.cols_padded(proj)
     packs, _ = dual_packs(msgs, 20, device)
     pose = torch.tensor([0.03, -0.02, 0.05], device=device)
     geos, agree = [], []
@@ -1541,6 +1572,10 @@ def check_probes(msgs, device) -> list[dict]:
         geos.append(bzk.pack_cells(moved, proj))
         ref = projector_op.project_local(proj, moved)
         agree.append((moved, ref))
+    tied = bzk.pack_cells(with_tied_rows(agree[0][0], 0, True,
+                                         view=(proj, torch.zeros(3, device=device), B)), proj)
+    ties = bzk.tie_counts(proj, tied)
+    assert {2, 3} <= ties, f"the tied cells' tie counts {ties} lack 2 or 3"
     bzk.launches = 0
     outs = [bzk.beam_zbuffer_probe(proj, g) for g in geos]
     torch.cuda.synchronize()
@@ -1552,13 +1587,17 @@ def check_probes(msgs, device) -> list[dict]:
         err = max(err, float((o[:3] - p[:3]).abs().max()))
         s_ok = o[4, :MULTI_BEAMS] > 0
         fraction = min(fraction, float((s_ok == ref.valid).float().mean()))
+    o, p = bzk.beam_zbuffer_probe(proj, tied), bzk.beam_zbuffer_probe_plain(proj, tied)
+    assert torch.equal(o[4], p[4]) and torch.equal(o[3], p[3]), "tied z-buffer winners differ"
+    tied_err = float((o[:3] - p[:3]).abs().max())
     log(f"shift z-buffer probe: {len(geos)} scans, winners equal, fields within {err:.3g}, "
-        f"agreement with the projector z-buffer >= {fraction:.4f}")
-    assert err <= 1e-6 and fraction >= 0.995
-    B = bzk.cols_padded(proj)
+        f"agreement with the projector z-buffer >= {fraction:.4f}; tied cells (lanes tied at "
+        f"a beam's minimum: {sorted(ties)}) winners equal, fields within {tied_err:.3g}")
+    assert max(err, tied_err) <= 1e-6 and fraction >= 0.995
     g0 = geos[0]
     ms = kernel_time_ms("beam_zbuffer_kernel", device_time_ms,
                         lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
+    empty_ms = device_time_ms(lambda: bzk.empty_launch(proj, device), 100)
     paced_ms = cuda_time_ms(lambda: bzk.beam_zbuffer_probe(proj, g0), 100)
     plain_ms = cuda_time_ms(lambda: bzk.beam_zbuffer_probe_plain(proj, g0), 20)
     # bytes: the 6 rows of geoT the kernel reads (rows 6-7 are never read)
@@ -1567,39 +1606,73 @@ def check_probes(msgs, device) -> list[dict]:
     entries = [{"name": "beam_zbuffer_kernel", "route": "cuda",
                 "source": "srrg2_laser_slam_2d_tpu_torch/csrc/beam_zbuffer_kernel.cu",
                 "replaces": "tests/test_fast_tracker.py:81", "launches": z_launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None, "host_paced_ms": paced_ms,
+                "max_abs_err": max(err, tied_err), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "host_paced_ms": paced_ms, "empty_kernel_ms": empty_ms,
+                "tie_counts": sorted(ties),
                 "shape": f"B={B} cols={MULTI_BEAMS} max_shift={bzk.MAX_SHIFT}"}]
-    log(f"beam_zbuffer_kernel B={B}: {ms:.4f} ms ({paced_ms:.4f} at the host's pace), "
-        f"plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+    log(f"beam_zbuffer_kernel B={B}: {ms:.5f} ms ({paced_ms:.4f} at the host's pace), "
+        f"empty kernel at its launch shape {empty_ms:.5f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})")
 
     exp_gather.launches = 0
     runs = [exp_gather.run(form, k, 10, device) for k in (8, 32) for form in exp_gather.FORMS]
     g_launches = exp_gather.launches
+    assert all(r["err"] <= 1e-5 for r in runs), runs
+    for k, lanes, shift in GATHER_CASES:
+        canvas, idx = exp_gather.make_inputs(k, device, lanes, shift)
+        ref = exp_gather.gather_probe_plain(canvas, idx, 10)
+        for form in exp_gather.FORMS:
+            out = exp_gather.gather_probe(canvas, idx, 10, form, shift)
+            assert torch.equal(out, ref), (k, lanes, shift, form)
+    log(f"gather probe: both forms EQUAL to the plain version at (K, lanes, shift) "
+        f"{GATHER_CASES}")
     times = {}
     for k in (8, 32):
         canvas, idx = exp_gather.make_inputs(k, device)
-        ref = exp_gather.gather_probe_plain(canvas, idx, 10)
         for form in exp_gather.FORMS:
-            out = exp_gather.gather_probe(canvas, idx, 10, form)
-            assert torch.equal(out, ref), (k, form)
             times[(form, k)] = kernel_time_ms(
                 f"gather_probe_kernel {form} K={k}", device_time_ms,
                 lambda canvas=canvas, idx=idx, form=form: exp_gather.gather_probe(
                     canvas, idx, 10, form), 100)
-        times[("plain", k)] = cuda_time_ms(lambda: exp_gather.gather_probe_plain(canvas, idx, 10),
-                                           20)
-    assert all(r["err"] <= 1e-5 for r in runs), runs
+            times[(f"empty {form}", k)] = device_time_ms(
+                lambda k=k, form=form: exp_gather.empty_launch(k, form=form, device=device), 100)
+        # the function at one pass is one library call: torch.gather, its
+        # int64 index made beforehand (the yardstick; the probe never calls it)
+        idx64 = idx.long()[None].expand(canvas.shape)
+        assert torch.equal(exp_gather.gather_probe(canvas, idx, 1),
+                           torch.gather(canvas, 2, idx64))
+        times[("direct iters=1", k)] = kernel_time_ms(
+            f"gather_probe_kernel direct K={k} iters=1", device_time_ms,
+            lambda canvas=canvas, idx=idx: exp_gather.gather_probe(canvas, idx, 1), 100)
+        times[("torch.gather", k)] = device_time_ms(
+            lambda canvas=canvas, idx64=idx64: torch.gather(canvas, 2, idx64), 100)
+        times[("plain", k)] = cuda_time_ms(
+            lambda canvas=canvas, idx=idx: exp_gather.gather_probe_plain(canvas, idx, 10), 20)
+    clock = sm_clock_mhz()
+    # the roll form's shared-memory loads: every lane reads 2S + 1 lanes of
+    # each of the 8 fields in each of 10 passes, 4 bytes each, at one
+    # 128-byte wavefront a cycle on each of the card's SMs at its maximum clock
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    roll_bytes = 8 * 32 * exp_gather.B * (2 * exp_gather.S + 1) * 10 * 4
+    roll_floor_ms = roll_bytes / (128 * sms) / (clock["max_sm"] * 1e3)
     b_ms, b_by = bound(exp_gather.bytes_moved(32), exp_gather.flops(32, 10))
-    log("gather probe (device ms): " + ", ".join(f"{f} K={k} {t:.4f}"
-                                                 for (f, k), t in times.items()))
+    log("gather probe (device ms): " + ", ".join(f"{f} K={k} {t:.5f}"
+                                                 for (f, k), t in times.items())
+        + f"; roll form's shared-memory floor at K=32 {roll_floor_ms:.5f} ms "
+        f"({sms} SMs at {clock['max_sm']:.0f} MHz; SM clock now {clock['sm']:.0f} MHz)")
     entries.append({"name": "gather_probe_kernel", "route": "cuda",
                     "source": "srrg2_laser_slam_2d_tpu_torch/csrc/gather_probe_kernel.cu",
                     "replaces": "bench/exp_gather.py:61", "launches": g_launches,
                     "max_abs_err": 0.0, "ms": times[("direct", 32)],
                     "plain_ms": times[("plain", 32)], "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None, "roll_ms": times[("roll", 32)],
-                    "k8_ms": {f: times[(f, 8)] for f in (*exp_gather.FORMS, "plain")},
+                    "library_ms": times[("torch.gather", 32)],
+                    "library": "torch.gather, one pass (the function at iters=1)",
+                    "iters1_ms": times[("direct iters=1", 32)],
+                    "roll_ms": times[("roll", 32)],
+                    "empty_kernel_ms": {f: times[(f"empty {f}", 32)] for f in exp_gather.FORMS},
+                    "roll_shared_floor_ms": roll_floor_ms, "sm_clock_mhz": clock,
+                    "k8_ms": {f: t for (f, k), t in times.items() if k == 8},
                     "shape": f"K=32 B={exp_gather.B} S={exp_gather.S} iters=10 (form direct)",
                     "err_vs_numpy": max(r["err"] for r in runs)})
     return entries

@@ -1,9 +1,9 @@
 """Every kernel call that ``chip_smoke.py`` times, built from other CUDA
 sources and from the package's own, timed in turns on the card; then the
-phase tables of kernels 2, 4, 5, 6, 7 and 8.
+phase tables of kernels 2, 4, 5, 6, 7, 8 and the two probes.
 
     python -m srrg2_laser_slam_2d_tpu_torch.bench.compare_csrc --csrc DIR
-        [--routes] [--clusters] [--only message-kernels]
+        [--routes] [--clusters] [--only message-kernels | --only probes]
         [--out chiprun_out/compare.json]
 
 Run it from the repository root. ``DIR`` holds the other sources, e.g. an
@@ -14,17 +14,19 @@ older commit's ``csrc`` unpacked under ``build/``::
 
 The inputs are ``chip_smoke.py``'s own: its check functions run once on
 the package's build (each kernel against its plain version, the corridor
-run whose largest NN-ICP batch is kept, the MULTI drive), and every call
-they time (``chip_smoke.KERNEL_TIMINGS``) is timed again through the same
-wrapper from the other build and from the package's, in turns (other,
-own, own, other). Then a ``-DFRAME_PHASE_TIMING`` build of the package's
-kernels 2, 4, 5, 6, 7 and 8 gives their phase tables (thread 0 of block 0
-stamps ``clock64()`` at each phase boundary: SM cycles per launch of each
-phase), and each build's estimates on the corridor batch are held against
-the plain version's. Kernels 1 and 3's phase tables, barrier counts and
-beams-per-thread sweep are ``bench/frame_phases.py``'s. ``--only
-message-kernels`` takes the per-message loop's kernels (8, 7, 5, 4) alone,
-for a short call; it takes neither ``--routes`` nor ``--clusters``.
+run whose largest NN-ICP batch is kept, the MULTI drive and its probes),
+and every call they time (``chip_smoke.KERNEL_TIMINGS``) is timed again
+through the same wrapper from the other build and from the package's, in
+turns (other, own, own, other). Then a ``-DFRAME_PHASE_TIMING`` build of
+the package's kernels 2, 4, 5, 6, 7, 8 and the two probes gives their phase
+tables (thread 0 of block 0 stamps ``clock64()`` at each phase boundary: SM
+cycles per launch of each phase), and each build's estimates on the
+corridor batch are held against the plain version's. Kernels 1 and 3's
+phase tables, barrier counts and beams-per-thread sweep are
+``bench/frame_phases.py``'s. ``--only message-kernels`` takes the
+per-message loop's kernels (8, 7, 5, 4) alone, ``--only probes`` the two
+probe kernels (9a, 9b) on the MULTI drive's scans, each for a short call;
+``--only`` takes neither ``--routes`` nor ``--clusters``.
 
 ``--routes`` adds the per-message routes that launch kernels 5, 4, 7 and 8
 (``chip_smoke.py``'s A, B, B ``reuse_clip_canvas`` and C with the kernel
@@ -85,7 +87,12 @@ PHASE_NAMES = {
                                 "passes: fields + atomicMin + barrier 1",
                                 "tie count + sums + barrier 2",
                                 "owners: match + reset (+ prior)",
-                                "reduction + warp 0's update (2 barriers)")}
+                                "reduction + warp 0's update (2 barriers)"),
+    "beam_zbuffer_kernel": ("zero rows stored, loads issued, slots cleared + barrier",
+                            "load wait + fields + depth atomicMin", "barrier + lane atomicMax",
+                            "barrier", "winner reads + stores"),
+    "gather_probe_kernel": ("row staged (bulk copy, halo, barrier, wait)", "passes",
+                            "store")}
 ROUTES = ("A", "B", "B reuse_clip_canvas", "C kernel z-buffer")
 # each kernel's histogram is read on the route named
 HISTOGRAM_ROUTE = {"projector_kernel": "C kernel z-buffer", "scene_kernel": "B"}
@@ -304,7 +311,7 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
     smoke.log(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     for key, text in logs.items():
         if key.startswith(("own/nn", "own/multicue", "own/projector", "own/scene",
-                           "own/banded", "own/projective")):
+                           "own/banded", "own/projective", "own/beam", "own/gather")):
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     smoke.log(f"  {key}: {line.strip()}")
@@ -317,13 +324,16 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
         smoke.check_frame_kernel(msgs, slam_cfg, pcfg, device)
         smoke.check_nn_icp_kernel(slam_cfg.detector, device)
         smoke.check_stream_kernel(device)
-    smoke.check_message_kernels(msgs, slam_cfg, pcfg, device)
+    if only in (None, "message-kernels"):
+        smoke.check_message_kernels(msgs, slam_cfg, pcfg, device)
     if only is None:
         capture = smoke.DetectionCapture()
         smoke.corridor_run("configurations/corridor.json", msgs, device, capture)
         corridor_check = smoke.check_nn_icp_corridor(capture.batch)
+    if only in (None, "probes"):
         dual, _ = smoke.dual_drive(device)
-        smoke.check_multicue_kernel(dual, device)
+        if only is None:
+            smoke.check_multicue_kernel(dual, device)
         smoke.check_probes(dual, device)
 
     rounds = []
@@ -418,8 +428,9 @@ def main() -> None:
                     help="also the routes that launch kernels 7 and 8, and their histograms")
     ap.add_argument("--clusters", action="store_true",
                     help="also the package's kernels 7 and 8 at each cluster size")
-    ap.add_argument("--only", choices=["message-kernels"], default=None,
-                    help="time only the per-message loop's kernels (8, 7, 5, 4); no routes")
+    ap.add_argument("--only", choices=["message-kernels", "probes"], default=None,
+                    help="time only the per-message loop's kernels (8, 7, 5, 4) or the two "
+                         "probes (9a, 9b); no routes")
     ap.add_argument("--out", default="chiprun_out/compare.json")
     args = ap.parse_args()
     if args.only and (args.routes or args.clusters):

@@ -6,12 +6,14 @@ gather). Both compute
 
 for canvas [8, K, B] float32 and idx = clip(lane + delta, 0, B - 1),
 |delta| <= S, B = 768, S = 64, from numpy's generator seeded 0 as in the
-TPU probe. ``direct`` gathers from global memory in every pass; ``roll``
-stages the row in shared memory and selects among the 2S + 1 shifted lanes.
-The CUDA kernel is ``csrc/gather_probe_kernel.cu``; ``gather_probe_plain``
-is its plain PyTorch version. Each run checks against numpy
-(``take_along_axis`` times ``iters``) and prints the error and the best
-time of 20 host-timed calls, as the TPU probe does.
+TPU probe. Both forms stage each canvas row in shared memory once (the
+TPU probe's canvas sits in VMEM); ``direct`` gathers the lane's cell from it
+in every pass, ``roll`` reads all 2S + 1 shifted lanes in every pass and
+keeps the one whose shift is idx - lane. The CUDA kernel is
+``csrc/gather_probe_kernel.cu``; ``gather_probe_plain`` is its plain PyTorch
+version. Each run checks against numpy (``take_along_axis`` times
+``iters``) and prints the error and the best time of 20 host-timed calls,
+as the TPU probe does.
 
 Usage (the CUDA card by default; without one it raises):
   python -m srrg2_laser_slam_2d_tpu_torch.bench.exp_gather [--forms direct,roll]
@@ -73,7 +75,9 @@ def gather_probe(canvas: torch.Tensor, idx: torch.Tensor, iters: int = 10,
     if canvas.device.type != "cuda":
         raise ValueError(f"unsupported device {canvas.device}")
     _, K, lanes = canvas.shape
+    _check_lanes(lanes)
     _cuda.check_tensor("canvas", canvas, (8, K, lanes), canvas.device)
+    _cuda.check_aligned("canvas", canvas)
     if idx.dtype != torch.int32 or tuple(idx.shape) != (K, lanes) or idx.device != canvas.device:
         raise ValueError(f"idx: need an int32 ({K}, {lanes}) tensor on {canvas.device}")
     out = torch.empty_like(canvas)
@@ -86,6 +90,26 @@ def gather_probe(canvas: torch.Tensor, idx: torch.Tensor, iters: int = 10,
         raise RuntimeError(f"gather_probe_kernel launch failed: {_cuda.error_string(err)}")
     launches += 1
     return out
+
+
+def _check_lanes(lanes: int) -> None:
+    """The kernel runs one thread a lane and stages each row with one bulk
+    copy in 16-byte pieces."""
+    if lanes > 1024 or lanes % 4:
+        raise ValueError(f"{lanes} lanes: the kernel takes a multiple of 4, at most 1024")
+
+
+def empty_launch(K: int, lanes: int = B, shift: int = S, form: str = "direct",
+                 device=None) -> None:
+    """One launch of an empty kernel at the probe's grid, block and shared
+    memory (not counted in ``launches``): the floor under its device time."""
+    _check_lanes(lanes)
+    device = torch.device(device or "cuda")
+    with torch.cuda.device(device):
+        err = _cuda.load("gather_probe_kernel").gather_probe_floor(
+            K, lanes, int(shift), FORMS.index(form), _cuda.stream_of(device))
+    if err != 0:
+        raise RuntimeError(f"gather_probe_floor launch failed: {_cuda.error_string(err)}")
 
 
 def bytes_moved(K: int, lanes: int = B) -> int:

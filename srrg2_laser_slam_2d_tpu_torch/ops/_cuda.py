@@ -52,9 +52,13 @@ _SIGNATURES = {
                               "multicue_block_sums_test": [_VOID, _INT, _VOID, _INT, _VOID]},
     # geoT, out, B, cols, f, c, range_min, range_max, max_shift, stream
     "beam_zbuffer_kernel": {"beam_zbuffer": [_VOID] * 2 + [_INT] * 2 + [_FLOAT] * 4
-                            + [_INT, _VOID]},
+                            + [_INT, _VOID],
+                            # B, stream (an empty kernel at the probe's launch shape)
+                            "beam_zbuffer_floor": [_INT, _VOID]},
     # canvas, idx, out, K, B, shift, iterations, form, stream
-    "gather_probe_kernel": {"gather_probe": [_VOID] * 3 + [_INT] * 5 + [_VOID]},
+    "gather_probe_kernel": {"gather_probe": [_VOID] * 3 + [_INT] * 5 + [_VOID],
+                            # K, B, shift, form, stream (an empty kernel at its launch shape)
+                            "gather_probe_floor": [_INT] * 4 + [_VOID]},
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -53,6 +53,23 @@ def beam_zbuffer_probe_plain(proj: PolarProjection, geoT: torch.Tensor,
                       torch.zeros(3, geoT.shape[1], device=geoT.device)])
 
 
+def tie_counts(proj: PolarProjection, geoT: torch.Tensor, max_shift: int = MAX_SHIFT) -> set:
+    """How many lanes tie at the closest depth of each beam that a lane
+    reaches, counting only lanes within the band: a set of counts, {1}
+    where no two lanes tie."""
+    B = geoT.shape[1]
+    f = bk.moving_fields(tuple(geoT[k] for k in range(5)), torch.zeros(3, device=geoT.device),
+                         proj)
+    smin, _, s_ok = bk.beam_zbuffer_by_shifts(geoT[5:6], f["d"], f["col_i"], f["okp"],
+                                              max_shift)
+    col = f["col_i"].clamp(0, B - 1)
+    lane = torch.arange(B, device=geoT.device)
+    at_min = (f["okp"] & ((f["col_i"] - lane).abs() <= max_shift) & s_ok[col]
+              & (f["d"] == smin[col]))
+    counts = torch.bincount(col[at_min], minlength=B)
+    return set(counts[counts > 0].tolist())
+
+
 def beam_zbuffer_probe(proj: PolarProjection, geoT: torch.Tensor,
                        max_shift: int = MAX_SHIFT) -> torch.Tensor:
     """geoT [8, B] -> [8, B] (layouts in the module docstring). CUDA
@@ -76,3 +93,15 @@ def beam_zbuffer_probe(proj: PolarProjection, geoT: torch.Tensor,
         raise RuntimeError(f"beam_zbuffer_kernel launch failed: {_cuda.error_string(err)}")
     launches += 1
     return out
+
+
+def empty_launch(proj: PolarProjection, device=None) -> None:
+    """One launch of an empty kernel at the probe's launch shape (one block
+    of B threads, the same shared memory; not counted in ``launches``): the
+    floor under its device time."""
+    device = torch.device(device or "cuda")
+    with torch.cuda.device(device):
+        err = _cuda.load("beam_zbuffer_kernel").beam_zbuffer_floor(
+            cols_padded(proj), _cuda.stream_of(device))
+    if err != 0:
+        raise RuntimeError(f"beam_zbuffer_floor launch failed: {_cuda.error_string(err)}")

@@ -16,8 +16,9 @@ scene kernels do no sums: indices, rows and depths are EQUAL, fields agree
 to 1e-6 (ties are averaged across the blocks of a cluster); the aligner
 kernels' estimates agree to 1e-5, their counts to 1 (the multi-cue
 aligner's, which sums twice the rows, to 2). The probes: the
-shift z-buffer's winners and validity EQUAL and depths within 1e-6; the
-gather EQUAL (the same additions in the same order)."""
+shift z-buffer's winners and validity EQUAL and depths within 1e-6, also
+with forced depth ties; the gather EQUAL (the same additions in the same
+order) at K = 1, 8, 32 and at 256 lanes."""
 
 import dataclasses
 import functools
@@ -707,8 +708,8 @@ def test_probe_kernels_match_plain_on_card(card, room_scans):
     canvas = projector_op.project_local(proj, clouds[0])
     idx = canvas.idx.clamp(min=0)
     cells = Cloud(clouds[0].xy[idx], clouds[0].normal[idx], canvas.valid)
-    geoT = bzk.pack_cells(cloud_op.transform(cells, torch.tensor([0.03, -0.02, 0.05],
-                                                                  device=card)), proj)
+    moved = cloud_op.transform(cells, torch.tensor([0.03, -0.02, 0.05], device=card))
+    geoT = bzk.pack_cells(moved, proj)
     before = bzk.launches
     k = bzk.beam_zbuffer_probe(proj, geoT)
     torch.cuda.synchronize()
@@ -716,8 +717,24 @@ def test_probe_kernels_match_plain_on_card(card, room_scans):
     p = bzk.beam_zbuffer_probe_plain(proj, geoT)
     assert torch.equal(k[4], p[4]) and torch.equal(k[3], p[3]) and int(k[4].sum()) > 200
     assert float((k[:3] - p[:3]).abs().max()) <= 1e-6
-    for K in (8, 32):
-        cv, ix = exp_gather.make_inputs(K, card)
+    # forced two- and three-way depth ties at beams' minima: the highest lane wins
+    B = bzk.cols_padded(proj)
+    tied = bzk.pack_cells(with_tied_rows(moved, 0, True,
+                                         view=(proj, torch.zeros(3, device=card), B)), proj)
+    assert {2, 3} <= bzk.tie_counts(proj, tied)
+    k, p = bzk.beam_zbuffer_probe(proj, tied), bzk.beam_zbuffer_probe_plain(proj, tied)
+    assert torch.equal(k[4], p[4]) and torch.equal(k[3], p[3])
+    assert float((k[:3] - p[:3]).abs().max()) <= 1e-6
+    for K, lanes, shift in ((1, 768, 64), (8, 768, 64), (32, 768, 64), (2, 256, 16),
+                            (8, 256, 16)):
+        cv, ix = exp_gather.make_inputs(K, card, lanes, shift)
         ref = exp_gather.gather_probe_plain(cv, ix, 10)
         for form in exp_gather.FORMS:
-            assert torch.equal(exp_gather.gather_probe(cv, ix, 10, form), ref), (K, form)
+            out = exp_gather.gather_probe(cv, ix, 10, form, shift)
+            assert torch.equal(out, ref), (K, lanes, shift, form)
+    with pytest.raises(ValueError):
+        exp_gather.gather_probe(*exp_gather.make_inputs(1, card, 1028, 16), 10, "direct", 16)
+    with pytest.raises(ValueError):
+        exp_gather.gather_probe(*exp_gather.make_inputs(1, card, 254, 16), 10, "direct", 16)
+    with pytest.raises(ValueError):
+        exp_gather.gather_probe(cv, ix, 10, "take2d", shift)

@@ -252,8 +252,9 @@ def _jax_shift_zbuffer(geoT, proj):
                           interpret=True)(jnp.asarray(geoT))
 
 
-def test_shift_zbuffer_probe_matches_pallas_probe_and_projector():
-    beams = 256
+def _probe_cells(beams: int = 256):
+    """The shift z-buffer probe's projection and input: a synthetic scan's
+    cells, one per beam, moved by a small pose."""
     ds = tsynthetic.simulate(tsynthetic.SyntheticConfig(steps=1, num_beams=beams), "cpu")
     proj = PolarProjection.make(cols=beams, angle_min=-np.pi, angle_max=np.pi,
                                 range_min=0.3, range_max=20.0)
@@ -265,7 +266,12 @@ def test_shift_zbuffer_probe_matches_pallas_probe_and_projector():
     canvas = tprojector.project_local(proj, m0)
     idx = canvas.idx.clamp(min=0)
     cells = tcloud.Cloud(m0.xy[idx], m0.normal[idx], canvas.valid)
-    moved = tcloud.transform(cells, torch.tensor([0.03, -0.02, 0.05]))
+    return proj, tcloud.transform(cells, torch.tensor([0.03, -0.02, 0.05]))
+
+
+def test_shift_zbuffer_probe_matches_pallas_probe_and_projector():
+    beams = 256
+    proj, moved = _probe_cells(beams)
     geoT = bzk.pack_cells(moved, proj)
     before = bzk.launches
     out = bzk.beam_zbuffer_probe(proj, geoT).numpy()
@@ -281,6 +287,32 @@ def test_shift_zbuffer_probe_matches_pallas_probe_and_projector():
     both = s_ok & ref.valid.numpy()
     assert both.sum() > 80          # a 0.8 pi scan covers 102 of the 256 beams
     assert np.abs(out[0, :beams][both] - ref.depth.numpy()[both]).max() < 1e-5
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shift_zbuffer_probe_ties_match_pallas_probe(seed):
+    """Cells with forced two- and three-way depth ties at beams' minima
+    (``with_tied_rows``: copies of a beam's closest cell written over the
+    lanes that follow it): the ties reach the minima, and the plain
+    ``beam_zbuffer_by_shifts`` picks the JAX one's winners (the highest
+    tied lane) there."""
+    proj, moved = _probe_cells()
+    B = bzk.cols_padded(proj)
+    tied = tsynthetic.with_tied_rows(moved, seed, True, view=(proj, torch.zeros(3), B))
+    geoT = bzk.pack_cells(tied, proj)
+    assert bzk.tie_counts(proj, bzk.pack_cells(moved, proj)) == {1}
+    assert {2, 3} <= bzk.tie_counts(proj, geoT)
+    out = bzk.beam_zbuffer_probe(proj, geoT).numpy()
+    j = np.asarray(_jax_shift_zbuffer(geoT.numpy(), JProjection(*proj)))
+    np.testing.assert_array_equal(out[4], j[4])
+    np.testing.assert_array_equal(out[3], j[3])      # the winner's home row
+    np.testing.assert_allclose(out[:3], j[:3], atol=1e-6)
+    # a beam won by a tie goes to the highest of the tied lanes
+    g = geoT.numpy()
+    copies = [r for r in range(1, B) if g[4, r] > 0 and g[0, r] == g[0, r - 1]
+              and g[1, r] == g[1, r - 1] and g[4, r - 1] > 0]
+    won = set(out[3][out[4] > 0].astype(int).tolist())
+    assert len(copies) >= 10 and all((r - 1) not in won for r in copies)
 
 
 @pytest.mark.parametrize("K", [2, 8])
