@@ -83,16 +83,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      same log through the front laser alone under ``laser0_slam``, the
      kernel's launches counted from 0 and equal to the tracked frames, dual
      ATE <= single-cue ATE and a graph that closes;
-  10. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+  10. the reference's main entry point and what it reads and writes, every
+     launch counter set to 0 before each run and read after it: (a) the
+     whole corridor through ``apps/slam_app.py`` under ``corridor.json``
+     with ``--chunked 1024``, the TUM trajectory (2,871 rows) and the map
+     PNG written (its structure checked: signature, IDAT inflating to
+     h * (1 + 3 w) bytes), the frame kernel launched 3 times and the NN-ICP
+     kernel at least once, the gate PASS under ``CORRIDOR_THRESHOLDS`` with
+     closures accepted, its ATE printed beside phase 6's; (b) a CARMEN log
+     written by ``bench/synthetic.to_carmen`` from ``simulate`` at 721 beams
+     and 400 steps, parsed by the native loader (built with ``g++`` into
+     ``build/``, ``backend == "native"``) into arrays EQUAL to the Python
+     parser's, then run per message through ``generic_bench_app --carmen``
+     (route D: the frame kernel once per tracked frame, finite trajectory;
+     the simul gate's verdict and ATE printed); (c) the same log with
+     ``--checkpoint --checkpoint-every 100 --max-frames 200``, then resumed
+     from the checkpoint: the frame kernel once per frame after the resume
+     and the end pose within 0.3 m of (b)'s uninterrupted run, one save
+     and one load timed alone; (d) the frame kernel's payload row 7
+     (``FastTracker.iteration_stats``: chi and inliers per Gauss-Newton
+     iteration) on one route-D frame of the log against its plain version
+     from the same state, chi within 1e-3 relative, inliers equal; (e)
+     ``slam_app -j`` writes the default assembly, which reads back equal;
+  11. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
      launches on its main path (the probes: their own probe runs), its error
      against the plain version, its time, the plain version's time, its
      bound and the time of one PyTorch call that computes the same function
      where there is one (the gather probe's ``torch.gather``).
 The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
-``chiprun_out/chip_smoke.json``. Nothing of the earlier paths is cut.
-``--only message-kernels`` / ``--only message-path`` / ``--only multi`` run
-the build and part 5, part 8 or part 9 alone while developing, and print no
-result lines. ``bench/compare_csrc.py`` reuses the check functions to time
+``chiprun_out/chip_smoke.json`` (phase 10's launches of kernels 1 and 2 also
+under ``slam_app_corridor_launches`` and ``carmen_per_message_launches`` of
+their entries). Nothing of the earlier paths is cut.
+``--only message-kernels`` / ``--only message-path`` / ``--only multi`` /
+``--only slam-app`` run the build and part 5, part 8, part 9 or part 10
+alone while developing, and print no result lines. ``bench/compare_csrc.py`` reuses the check functions to time
 every kernel call this script times against other CUDA sources.
 
 Tolerances. Kernel and plain version run the same float32 operations in
@@ -1690,11 +1714,273 @@ def multi_path(device) -> dict:
     return {"kernels": [kernel, *probes], "multicue_bench": bench, "multi_loop": loop}
 
 
+# ------------------------------------------------- the slam_app slice (phase 10)
+
+CARMEN_STEPS = 400
+CARMEN_BEAMS = 721
+CHECKPOINT_AT = 200
+# the resumed run's end pose against the uninterrupted run's: the JAX
+# package's own tolerance for a resumed run (tests/test_longrun.py), which
+# drops the validator's pending closures as the port's checkpoint does
+RESUME_TOL_M = 0.3
+ITER_CHI_RTOL = 1e-3
+
+
+def png_check(path: str) -> dict:
+    """The PNG's structure: the signature, then IHDR (8-bit RGB), IDAT
+    inflating to h * (1 + 3 w) bytes, IEND."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: no PNG signature"
+    chunks, pos = {}, 8
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        chunks[data[pos + 4:pos + 8]] = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    raw = zlib.decompress(chunks[b"IDAT"])
+    assert (depth, color) == (8, 2) and len(raw) == h * (1 + 3 * w), (w, h, len(raw))
+    assert b"IEND" in chunks
+    return {"width": w, "height": h, "bytes": len(data)}
+
+
+def slam_app_corridor_run(corridor: dict) -> dict:
+    """(a) The whole corridor through ``slam_app`` (``run`` is ``main``'s
+    body and also returns the runner) under ``corridor.json`` with
+    ``--chunked 1024``, the trajectory and the map written; the launch
+    counters set to 0 just before and read just after."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+    from srrg2_laser_slam_2d_tpu_torch.io import tum
+
+    out_tum = os.path.join(OUT_DIR, "slam_app_corridor.tum")
+    out_png = os.path.join(OUT_DIR, "slam_app_corridor.png")
+    args = slam_app.parser().parse_args([
+        "-c", "configurations/corridor.json", "-i", corridor_e2e.DATA, "--chunked", str(CHUNK),
+        "-o", out_tum, "--draw", out_png])
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, runner = slam_app.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    t, poses = tum.read_tum(out_tum)
+    stats, regression = ate_of([(ti, p, 0.0) for ti, p in zip(t, poses)])
+    slam = runner.slam
+    summary = {"graph_variables": slam.num_variables(), "graph_factors": slam.num_factors()}
+    out = {"frames": len(t), "wall_s": wall, "frames_per_s": len(t) / wall,
+           "mean_frame_hz": runner.timing_summary()["mean_frame_hz"],
+           "ate_rmse_translation_m": float(stats["rmse_translation"]),
+           "phase6_ate_rmse_translation_m": corridor["ate_rmse_translation_m"],
+           "gate_verdict": "REGRESSION" if regression else "PASS",
+           "closures": slam.num_closures, **summary, "png": png_check(out_png),
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"slam_app corridor --chunked {CHUNK}: {json.dumps(out)}")
+    assert rc == 0 and len(t) == 2871 and np.isfinite(poses).all()
+    assert out["gate_verdict"] == "PASS", out
+    assert corridor_e2e.closures_accepted(summary), "no loop closure was accepted"
+    # one launch per chunk: 2,871 frames in three chunks of 1,024
+    assert launches["frame_kernel"] == 3 and launches["nn_icp_kernel"] >= 1, launches
+    return out
+
+
+def carmen_log(device) -> str:
+    """The CARMEN log of the port's synthetic drive (721 beams, 400 steps)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import synthetic
+
+    ds = synthetic.simulate(synthetic.SyntheticConfig(steps=CARMEN_STEPS,
+                                                      num_beams=CARMEN_BEAMS), device)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "synthetic_carmen.clf")
+    synthetic.to_carmen(ds, path)
+    return path
+
+
+def check_native_loader(path: str) -> tuple[dict, dict]:
+    """(b) The native parser, built from ``native/dataloader.cpp`` into
+    ``build/``, against the Python parser on the same log: equal arrays.
+    Returns (the phase's numbers, the native arrays)."""
+    from srrg2_laser_slam_2d_tpu_torch.io import native_loader as nl
+
+    t0 = time.perf_counter()
+    nat = nl.load_carmen_arrays(path)
+    native_s = time.perf_counter() - t0
+    saved, nl._LIB = nl._LIB, None
+    try:
+        t0 = time.perf_counter()
+        py = nl.load_carmen_arrays(path)
+        python_s = time.perf_counter() - t0
+    finally:
+        nl._LIB = saved
+    assert nat["backend"] == "native" and py["backend"] == "python", (nat["backend"], py["backend"])
+    for key in ("ranges", "laser_pose", "odom_pose", "timestamp", "meta"):
+        assert np.array_equal(nat[key], py[key]), f"native loader: {key} differs"
+    out = {"scans": int(nat["ranges"].shape[0]), "beams": int(nat["ranges"].shape[1]),
+           "native_s": native_s, "python_s": python_s}
+    log(f"native CARMEN loader: {json.dumps(out)}")
+    assert out["scans"] == CARMEN_STEPS + 1 and out["beams"] == CARMEN_BEAMS
+    return out, nat
+
+
+def bench_app_carmen(path: str, extra: list[str]) -> tuple[dict, object, dict]:
+    """``generic_bench_app --carmen`` per message on the card (route D: the
+    LASER_0 preset's frame kernel, one launch per tracked frame), the
+    counters set to 0 just before and read just after."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import generic_bench_app as app
+
+    args = app.parser().parse_args(["--carmen", path, "--gate", "simul", *extra])
+    reset_launches()
+    rc, art, runner = app.run(args)
+    launches = read_launches()
+    assert rc in (0, -1), rc          # -1: the simul gate's verdict, printed, not asserted
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    assert np.isfinite(traj).all()
+    return art, runner, launches
+
+
+def carmen_message_run(path: str) -> tuple[dict, object]:
+    """(b) The whole CARMEN log through ``generic_bench_app --carmen``."""
+    art, runner, launches = bench_app_carmen(path, [])
+    n = art["frames"]
+    out = {"frames": n, "wall_s": art["total_dataset_time_s"],
+           "frames_per_s": n / art["total_dataset_time_s"], "mean_frame_hz": art["mean_frame_hz"],
+           "ate_rmse_translation_m": art["ate"]["rmse_translation"],
+           "gate_verdict": art["gate_verdict"], "graph_variables": art["graph_variables"],
+           "closures": art["closures"], "relocalizations": art["relocalizations"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"generic_bench_app --carmen, per message: {json.dumps(out)}")
+    assert n == CARMEN_STEPS + 1 and len(runner.trajectory) == n
+    assert type(runner.slam.tracker).__name__ == "FastTracker"
+    # the first frame seeds the tracker, every later one is one launch
+    assert launches["frame_kernel"] == n - 1, launches
+    return out, runner
+
+
+def checkpoint_run(path: str, whole) -> dict:
+    """(c) The same log saved every 100 frames and stopped at frame 200,
+    then the same command resumed from the checkpoint; the resumed run's
+    end pose against the uninterrupted run's. Also one save and one load
+    of the checkpoint timed alone."""
+    from srrg2_laser_slam_2d_tpu_torch.models.slam import GraphSLAM2D
+    from srrg2_laser_slam_2d_tpu_torch.utils import checkpoint as ckpt
+
+    ck = os.path.join(OUT_DIR, "carmen_checkpoint.npz")
+    for stale in (ck, ck[:-4] + ".meta.json"):
+        if os.path.exists(stale):
+            os.unlink(stale)
+    flags = ["--checkpoint", ck, "--checkpoint-every", "100"]
+    art1, first, _ = bench_app_carmen(path, flags + ["--max-frames", str(CHECKPOINT_AT)])
+    assert art1["frames"] == CHECKPOINT_AT and len(ckpt.trajectory_from(ck)) == CHECKPOINT_AT
+    timed = os.path.join(OUT_DIR, "carmen_checkpoint_timed.npz")
+    t0 = time.perf_counter()
+    ckpt.save(timed, first.slam, first.trajectory)
+    save_s = time.perf_counter() - t0
+    fresh = GraphSLAM2D(first.slam.cfg, sensor_in_robot=np.zeros(3, np.float32),
+                        device=first.device)
+    t0 = time.perf_counter()
+    ckpt.load(timed, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert fresh.n_maps == first.slam.n_maps
+    assert np.abs(fresh.robot_in_world() - first.slam.robot_in_world()).max() <= 1e-6
+    art2, resumed, launches = bench_app_carmen(path, flags)
+    n = art2["frames"]
+    end_d = float(np.linalg.norm(resumed.trajectory[-1][1][:2] - whole.trajectory[-1][1][:2]))
+    out = {"first_frames": art1["frames"], "resumed_frames": n,
+           "trajectory_rows": len(resumed.trajectory), "end_pose_apart_m": end_d,
+           "save_s": save_s, "load_s": load_s, "checkpoint_bytes": os.path.getsize(timed),
+           "graph_variables": resumed.slam.num_variables(),
+           "resumed_ate_rmse_translation_m": art2["ate"]["rmse_translation"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"checkpoint and resume: {json.dumps(out)}")
+    assert n == CARMEN_STEPS + 1 - CHECKPOINT_AT and len(resumed.trajectory) == CARMEN_STEPS + 1
+    assert launches["frame_kernel"] == n, launches     # one launch per frame after the resume
+    assert end_d <= RESUME_TOL_M, out
+    return out
+
+
+def check_iteration_stats(log_arrays: dict, device) -> dict:
+    """(d) Kernel 1's payload row 7 (per-iteration chi and inliers) against
+    its plain version: one route-D frame of the CARMEN log (scans and
+    odometry as the native loader read them, zero extrinsic as the app
+    tracks them), the kernel through ``FastTracker.compute`` and the plain
+    version from the state the tracker had just before."""
+    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
+    from srrg2_laser_slam_2d_tpu_torch.models.preprocessor import LaserModel, ScanPreprocessor
+    from srrg2_laser_slam_2d_tpu_torch.models.slam import frame_spec
+    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
+    from srrg2_laser_slam_2d_tpu_torch.utils import presets
+
+    n_beams, angle_min, fov, range_max = (float(v) for v in log_arrays["meta"][0])
+    ranges, odoms = log_arrays["ranges"], log_arrays["odom_pose"]
+    pre = ScanPreprocessor(presets.laser0_preprocessor(), device=device)
+    pre.set_model(LaserModel(int(n_beams), angle_min, angle_min + fov, 0.0,
+                             min(range_max, 80.0)))
+    spec = frame_spec(presets.laser0_slam(device=device))
+    tracker = ft.FastTracker(spec, device=device)
+    frame = 10
+    for k in range(frame):
+        tracker.compute(pre.compute(ranges[k]), odoms[k])
+    before = tracker.state
+    cloud = pre.compute(ranges[frame])
+    tracker.compute(cloud, odoms[frame])
+    kernel = tracker.iteration_stats().cpu().numpy()
+    meas = ft.pack_measurement_canvas(spec, cloud, odoms[frame], True)
+    _, _, pay = fk.track_frames_grid_plain(spec, before.cacheT, before.pose, meas[None])
+    plain = ft.iteration_stats(spec, pay[0]).cpu().numpy()
+    chi_rel = float((np.abs(kernel[:, 0] - plain[:, 0])
+                     / np.maximum(np.abs(plain[:, 0]), 1e-12)).max())
+    out = {"frame": frame, "iterations": int(spec.iterations), "chi_max_rel_err": chi_rel,
+           "inliers_equal": bool(np.array_equal(kernel[:, 1], plain[:, 1])),
+           "inliers": plain[:, 1].astype(int).tolist()}
+    log(f"frame kernel row 7 (iteration_stats) against its plain version: {json.dumps(out)}")
+    assert kernel.shape == (spec.iterations, 2) and (plain[:, 1] > 0).all()
+    assert chi_rel <= ITER_CHI_RTOL and out["inliers_equal"], out
+    return out
+
+
+def generated_config_check(device) -> dict:
+    """(e) ``slam_app -j`` writes the default assembly; it reads back equal."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
+    from srrg2_laser_slam_2d_tpu_torch.utils import config as config_mod
+    from srrg2_laser_slam_2d_tpu_torch.utils import presets
+
+    path = os.path.join(OUT_DIR, "slam_app_default.json")
+    assert slam_app.main(["-j", "-c", path]) == 0
+    back = config_mod.ConfigManager.read(path)
+    want = presets.default_config_manager(device=device)
+    names = sorted(want._names)
+    assert sorted(back._names) == names
+    for name in names:
+        assert back.get_by_name(name) == want.get_by_name(name), name
+    assert back.get_by_name("slam").use_fast_tracker
+    out = {"names": names, "bytes": os.path.getsize(path)}
+    log(f"slam_app -j read back equal: {json.dumps(out)}")
+    return out
+
+
+def slam_app_slice(corridor: dict, device) -> dict:
+    """Every part of phase 10."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    app_run = slam_app_corridor_run(corridor)
+    path = carmen_log(device)
+    native, arrays = check_native_loader(path)
+    message, whole = carmen_message_run(path)
+    resume = checkpoint_run(path, whole)
+    iters = check_iteration_stats(arrays, device)
+    config = generated_config_check(device)
+    return {"slam_app_corridor": app_run, "native_loader": native, "carmen_per_message": message,
+            "checkpoint": resume, "iteration_stats": iters, "generated_config": config}
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
-    ap.add_argument("--only", choices=["message-kernels", "message-path", "multi"], default=None,
+    ap.add_argument("--only", choices=["message-kernels", "message-path", "multi", "slam-app"],
+                    default=None,
                     help="while developing: run the build and this part alone; "
                          "prints no result lines")
     args = ap.parse_args()
@@ -1724,6 +2010,9 @@ def main() -> int:
     if args.only == "multi":
         multi_path(device)
         return 0
+    if args.only == "slam-app":
+        slam_app_slice({"ate_rmse_translation_m": None}, device)
+        return 0
     mgr = config_mod.ConfigManager.read("configurations/corridor.json")
     slam_cfg, pcfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
     msgs = corridor_e2e.load_messages()
@@ -1750,6 +2039,7 @@ def main() -> int:
     routes = message_routes_run(slam_cfg, pcfg, msgs, device)
     route_d = route_d_run(msgs)
     multi = multi_path(device)
+    slice10 = slam_app_slice(main_run, device)
     # each kernel's launches on ITS main path, counted from 0 over that path
     by_route = {r["route"]: r["launches"] for r in routes}
     launches = {**main_run["launches"], **throughput["launches"],
@@ -1764,6 +2054,11 @@ def main() -> int:
     kernels += multi["kernels"]
     for k in kernels:
         assert k["launches"] > 0, f"{k['name']} was not launched on its main path"
+    # what phase 10 adds: kernels 1 and 2 through slam_app, kernel 1 per CARMEN message
+    for part in ("slam_app_corridor", "carmen_per_message"):
+        for k in kernels:
+            if k["name"] in slice10[part]["launches"]:
+                k[f"{part}_launches"] = slice10[part]["launches"][k["name"]]
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -1773,7 +2068,7 @@ def main() -> int:
                    "per_message": {"route_d": route_d, "routes": routes,
                                    "one_local_map": one_map},
                    "multicue_bench": multi["multicue_bench"], "multi_loop": multi["multi_loop"],
-                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "slam_app": slice10, "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -5,15 +5,19 @@ benchmark suite. Counterpart of
 
 Usage (the CUDA card by default; without one it raises):
   python -m srrg2_laser_slam_2d_tpu_torch.apps.generic_bench_app \
-      -i log.jsonl [-c config.json] [--gt gt.tum] [-o traj.tum] \
-      [-t timings.txt] [--gate killian|simul|corridor] [--json-out art.json] \
-      [--max-frames N] [--chunked N] [--device cuda|cpu]
+      -i log.jsonl | --carmen log.clf [-c config.json] [--gt gt.tum] \
+      [-o traj.tum] [-t timings.txt] [--gate killian|simul|corridor] \
+      [--json-out art.json] [--max-frames N] [--chunked N] \
+      [--checkpoint ckpt.npz [--checkpoint-every N]] [--device cuda|cpu]
 
 The per-message loop (``--chunked 0``, the default) reads the pose back
 once per frame; ``--chunked N`` runs the chunk-batched loop instead. The
 tracker route of the per-message loop is the configuration's
-(``use_fast_tracker`` and the ``TrackerConfig`` flags). ``--carmen`` and
-``--checkpoint`` are not ported and raise.
+(``use_fast_tracker`` and the ``TrackerConfig`` flags). A CARMEN log
+carries its own ground truth (the laser poses; the app then tracks the
+laser, with a zero extrinsic). ``--checkpoint`` saves the per-message
+loop every ``--checkpoint-every`` frames and at the end; if the file is
+there, the run resumes from it, skipping the frames it holds.
 """
 
 from __future__ import annotations
@@ -43,17 +47,18 @@ def run(args, messages: list | None = None):
 
     from .._device import card_description, resolve_device
     from ..bench import suite as suite_mod
+    from ..io import carmen as carmen_io
     from ..io import sources, tum
     from ..models.runner import SlamRunner
+    from ..utils import checkpoint as ckpt
     from ..utils import config as config_mod
     from ..utils import presets
 
-    if args.carmen:
-        raise NotImplementedError("CARMEN logs (--carmen) are not ported")
-    if args.checkpoint:
-        raise NotImplementedError("checkpoints (--checkpoint) are not ported")
-    if not args.input and messages is None:
-        print("ERROR: provide -i", file=sys.stderr)
+    if not args.input and not args.carmen and messages is None:
+        print("ERROR: provide -i or --carmen", file=sys.stderr)
+        return -1, {}, None
+    if args.checkpoint and args.chunked:
+        print("ERROR: --checkpoint requires the per-message loop", file=sys.stderr)
         return -1, {}, None
     device = resolve_device(args.device)
     slam_cfg = pre_cfg = None
@@ -69,11 +74,38 @@ def run(args, messages: list | None = None):
                                    chunk=args.chunked, device=device)
     else:
         runner = SlamRunner(slam_config=slam_cfg, preprocessor_config=pre_cfg, device=device)
-    source = (sources.ListSource(messages) if messages is not None
-              else sources.JsonlFileSource(args.input))
+    if args.checkpoint and ckpt.exists(args.checkpoint):
+        resume_n = len(ckpt.trajectory_from(args.checkpoint))
+        runner.skip_frames = resume_n
+        runner.resume_checkpoint = args.checkpoint
+        print(f"resuming from {args.checkpoint} at frame {resume_n}")
+    gt = None
+    if messages is not None:
+        source = sources.ListSource(messages)
+    elif args.carmen:
+        packs, gt_arr = carmen_io.load_packs(args.carmen, args.max_frames)
+        source = sources.ListSource(packs)
+        runner.sensor_in_robot = np.zeros(3, np.float32)
+        gt = (gt_arr[:, 0], gt_arr[:, 1:])
+    else:
+        source = sources.JsonlFileSource(args.input)
+    if args.gt:
+        gt = tum.read_tum(args.gt)
 
     t_start = time.perf_counter()
-    n = runner.run(source, args.max_frames)
+    if args.checkpoint:
+        n = 0
+        for msg in source:
+            if runner.put_message(msg):
+                n += 1
+                if n % args.checkpoint_every == 0:
+                    ckpt.save(args.checkpoint, runner.slam, runner.trajectory)
+                if args.max_frames is not None and n >= args.max_frames:
+                    break
+        if runner.slam is not None:
+            ckpt.save(args.checkpoint, runner.slam, runner.trajectory)
+    else:
+        n = runner.run(source, args.max_frames)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     total_dataset_time = time.perf_counter() - t_start
@@ -95,7 +127,7 @@ def run(args, messages: list | None = None):
 
     slam = runner.slam
     artifact = {
-        "input": args.input,
+        "input": args.input or args.carmen,
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else str(device)),
         "card": card_description(device),
@@ -115,9 +147,9 @@ def run(args, messages: list | None = None):
         "relocalizations": slam.relocalizations if slam else 0,
     }
     rc = 0
-    if args.gt:
+    if gt is not None:
         bench = suite_mod.BenchmarkSuite()
-        bench.set_ground_truth(*tum.read_tum(args.gt))
+        bench.set_ground_truth(*gt)
         for t, p, d in runner.trajectory:
             bench.set_pose_estimate(p, t, d)
         stats = bench.compute()
@@ -147,7 +179,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("-i", "--input", default=None, help="JSONL message log")
-    ap.add_argument("--carmen", default=None, help="not ported")
+    ap.add_argument("--carmen", default=None,
+                    help="CARMEN log (its laser poses are the ground truth)")
     ap.add_argument("-c", "--config", default=None, help="named-assembly config file")
     ap.add_argument("--gt", default=None, help="ground-truth TUM file")
     ap.add_argument("-o", "--output", default=None, help="TUM trajectory output")
@@ -158,7 +191,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument("--chunked", type=int, default=0, metavar="N",
                     help="chunk-batched loop with N frames per launch; 0 = per-message loop")
-    ap.add_argument("--checkpoint", default=None, help="not ported")
+    ap.add_argument("--checkpoint", default=None,
+                    help="checkpoint path: saved every --checkpoint-every frames and at the "
+                         "end; if the file exists, the run RESUMES from it")
+    ap.add_argument("--checkpoint-every", type=int, default=400)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain "
                          "PyTorch versions)")

@@ -1,6 +1,6 @@
 """Deterministic synthetic scans with exact ground truth. Counterpart of
 ``srrg2_laser_slam_2d_tpu/bench/synthetic.py`` (``SyntheticConfig``,
-``SyntheticDataset``, ``make_scene``, ``simulate``).
+``SyntheticDataset``, ``make_scene``, ``simulate``, ``to_carmen``).
 
 World: a circle (r = 3.5, 2048 points) plus an L-corner (1024 points) at
 pose (2, 0, pi/4). A polar laser scans it from a seeded random-walk
@@ -103,6 +103,31 @@ def simulate(cfg: SyntheticConfig = SyntheticConfig(), device=None) -> Synthetic
     ranges = projector_op.ranges_from_canvas(canvas).cpu().numpy().astype(np.float32)
     return SyntheticDataset(config=cfg, scene=scene, robot_poses=robot_poses,
                             sensor_poses=sensor_poses, ranges=ranges, projection=proj)
+
+
+def to_carmen(ds: SyntheticDataset, path: str) -> None:
+    """Write the dataset as a CARMEN log of ROBOTLASER1 lines (which carry
+    the laser geometry): the laser pose is the sensor's ground truth, the
+    odometry the robot's, one scan every 0.1 s. The same bytes as the JAX
+    package's ``to_carmen`` on the same arrays."""
+    cfg = ds.config
+    fov = cfg.angle_max - cfg.angle_min
+    res = fov / cfg.num_beams
+    with open(path, "w") as f:
+        f.write("# synthetic CARMEN log (tpu-laser-slam-2d)\n")
+        for t in range(len(ds.ranges)):
+            n = cfg.num_beams
+            rs = " ".join(f"{r:.4f}" for r in ds.ranges[t])
+            lp = ds.sensor_poses[t]
+            op = ds.robot_poses[t]
+            ts = 0.1 * t
+            f.write(
+                f"ROBOTLASER1 0 {cfg.angle_min:.6f} {fov:.6f} {res:.6f} "
+                f"{min(cfg.range_max, 80.0):.2f} 0.01 0 {n} {rs} 0 "
+                f"{lp[0]:.6f} {lp[1]:.6f} {lp[2]:.6f} "
+                f"{op[0]:.6f} {op[1]:.6f} {op[2]:.6f} "
+                f"0 0 0 0 0 {ts:.4f} synth {ts:.4f}\n"
+            )
 
 
 def _min_rows(xy: torch.Tensor, valid: torch.Tensor, view) -> torch.Tensor:

@@ -29,7 +29,7 @@ from ..ops.frame_kernel import track_frames_grid
 from ..utils.cloud import Cloud
 from . import fast_tracker as fast_mod
 from . import loop_closure as lc
-from .slam import GraphSLAM2D, GraphSLAMConfig
+from .slam import GraphSLAM2D, GraphSLAMConfig, draw_map
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -91,6 +91,15 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         if self.current_map < 0:
             return np.zeros(3, np.float32)
         return lc.compose_np(self._poses_host[self.current_map], self._X_host)
+
+    def scene_of(self, m: int) -> Cloud | None:
+        """Scene of local map ``m``: the tracker's for the current map, else
+        a copy of the pool's."""
+        if m == self.current_map:
+            return self.tracker.capture_scene()
+        if self._pool is None or m >= self.n_maps:
+            return None
+        return self._pool_view(m)
 
     # ---- main entry ---------------------------------------------------------
     def process_chunk(self, clouds: Cloud, odoms: np.ndarray | None = None,
@@ -432,6 +441,11 @@ class ChunkedSlamRunner:
                     break
         self.finish()
         return n
+
+    def draw(self, canvas) -> None:
+        """The map over the host-side graph (``slam.draw_map``)."""
+        if self.slam is not None:
+            draw_map(canvas, self.slam, self.trajectory)
 
     def timing_summary(self) -> dict:
         frames = sum(n for n, _ in self._chunk_times)

@@ -208,12 +208,19 @@ class FastTracker:
                                 else np.asarray(sensor_in_robot, np.float32))
         self.state: FastState | None = None
         self._pending: list[torch.Tensor] = []
+        self._last_payload: torch.Tensor | None = None
 
     @property
     def robot_in_local_map(self) -> torch.Tensor:
         if self.state is None:
             return torch.zeros(3, device=self.device)
         return self.state.pose[0, 0:3]
+
+    @property
+    def scene(self) -> Cloud:
+        """The current scene, pending payloads applied."""
+        self.flush()
+        return self.state.scene
 
     def flush(self) -> None:
         """Apply pending frame payloads to the scene."""
@@ -225,8 +232,7 @@ class FastTracker:
         self.state = self.state._replace(scene=scene)
 
     def capture_scene(self) -> Cloud:
-        self.flush()
-        return self.state.scene
+        return self.scene
 
     def reseed(self, measurement: Cloud, odom=None) -> None:
         """Start a new local map at the current measurement."""
@@ -268,7 +274,23 @@ class FastTracker:
                                            self.state.pose)
         self.state = self.state._replace(cacheT=cacheT, pose=pose)
         self._pending.append(payload)
+        self._last_payload = payload
         return payload[6, :7]
+
+    def iteration_stats(self) -> torch.Tensor | None:
+        """[iterations, 2]: chi and inliers of each Gauss-Newton iteration
+        of the last tracked frame (None before one)."""
+        if self._last_payload is None:
+            return None
+        return iteration_stats(self.spec, self._last_payload)
+
+
+def iteration_stats(spec: FrameSpec, payload: torch.Tensor) -> torch.Tensor:
+    """Decode payload row 7 of one frame ([8, B]): chi in lanes [0:its],
+    inliers in lanes [64:64+its] -> [its, 2]."""
+    its = spec.iterations
+    row = payload[7]
+    return torch.stack([row[0:its], row[64:64 + its]], dim=1)
 
 
 def track_sequence_fast(spec: FrameSpec, state: FastState, measF_stack: torch.Tensor):

@@ -13,6 +13,7 @@ from ..ops import normals as normals_op
 from ..ops import projector as projector_op
 from ..utils import cloud as cloud_op
 from ..utils.cloud import Cloud
+from ..utils.status import Status
 
 
 @dataclass(frozen=True)
@@ -73,7 +74,8 @@ def preprocess_scan(proj: projector_op.PolarProjection, cfg: PreprocessorConfig,
 
 
 class ScanPreprocessor:
-    """Host-side adaptor: feed laser models and ranges, get masked clouds."""
+    """Host-side adaptor: feed laser models and ranges (or laser messages),
+    get masked clouds."""
 
     def __init__(self, cfg: PreprocessorConfig = PreprocessorConfig(),
                  device=None):
@@ -81,6 +83,10 @@ class ScanPreprocessor:
         self.device = resolve_device(device)
         self._model: LaserModel | None = None
         self._proj: projector_op.PolarProjection | None = None
+        # the stage's status (ERROR / READY / SUCCESS), read lazily so that
+        # the loop pays no device read for it
+        self._last_output: Cloud | None = None
+        self._error = False
 
     def set_model(self, model: LaserModel) -> None:
         if model != self._model:
@@ -93,6 +99,32 @@ class ScanPreprocessor:
             raise RuntimeError("no laser model set")
         return self._proj
 
+    @property
+    def status(self) -> Status:
+        """ERROR after a failed call or an empty cloud, READY before the
+        first call, SUCCESS after a cloud with points (every cloud of a
+        batch)."""
+        if self._error:
+            return Status.ERROR
+        if self._last_output is None:
+            return Status.READY
+        return Status.SUCCESS if bool((self._last_output.count() > 0).all()) else Status.ERROR
+
     def compute(self, ranges) -> Cloud:
+        if self._proj is None:
+            self._error = True
+            raise RuntimeError("no laser model set")
         r = torch.as_tensor(ranges, dtype=torch.float32, device=self.device)
-        return preprocess_scan(self.projection, self.cfg, r)
+        out = preprocess_scan(self._proj, self.cfg, r)
+        self._last_output = out
+        self._error = False
+        return out
+
+    def process_message(self, msg) -> Cloud:
+        """The cloud of a ``LaserMessage`` (duck-typed): its laser model,
+        then its ranges."""
+        self.set_model(LaserModel(
+            num_beams=len(msg.ranges), angle_min=float(msg.angle_min),
+            angle_max=float(msg.angle_max), range_min=float(msg.range_min),
+            range_max=float(msg.range_max)))
+        return self.compute(msg.ranges)

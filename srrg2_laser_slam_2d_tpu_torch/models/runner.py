@@ -5,8 +5,11 @@ extrinsic looked up in the TF tree. One laser topic (``scan_topic``) feeds
 the single-cue loop; several (``scan_topics``, the MULTI assembly) feed the
 multi-cue tracker, with each cue's extrinsic looked up in the TF tree on
 the first frame (``sensor_frames``, ``base_frame``) unless the
-configuration already holds ``cue_extrinsics``. Resuming from a checkpoint
-(``resume_checkpoint``) is not ported and raises.
+configuration already holds ``cue_extrinsics``. A run resumes from a
+checkpoint (``utils/checkpoint.py``) by skipping the frames it holds
+(``skip_frames``; odometry and TF still reach the platform) and loading it
+(``resume_checkpoint``) at the last skipped frame. ``draw`` renders the
+map onto a ``viz/canvas.Canvas``.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from .._device import resolve_device
 from ..io.messages import LaserMessage, OdometryMessage, extract_message
 from ..io.sources import Platform
 from ..utils import cloud as cloud_op
-from .preprocessor import LaserModel, PreprocessorConfig, ScanPreprocessor
-from .slam import GraphSLAM2D, GraphSLAMConfig
+from .preprocessor import PreprocessorConfig, ScanPreprocessor
+from .slam import GraphSLAM2D, GraphSLAMConfig, draw_map
 
 
 @dataclass
@@ -57,8 +60,6 @@ class SlamRunner:
     device: object = None
 
     def __post_init__(self):
-        if self.resume_checkpoint:
-            raise NotImplementedError("resuming from a checkpoint is not ported")
         self.device = resolve_device(self.device)
         self.platform = Platform()
         self.preprocessor = ScanPreprocessor(self.preprocessor_config, device=self.device)
@@ -86,12 +87,8 @@ class SlamRunner:
         return self.slam
 
     def _preprocess(self, laser: LaserMessage):
-        self.preprocessor.set_model(LaserModel(
-            num_beams=len(laser.ranges), angle_min=float(laser.angle_min),
-            angle_max=float(laser.angle_max), range_min=float(laser.range_min),
-            range_max=float(laser.range_max)))
         t_pre = time.perf_counter()
-        cloud = self.preprocessor.compute(np.asarray(laser.ranges, np.float32))
+        cloud = self.preprocessor.process_message(laser)
         self.preprocess_time += time.perf_counter() - t_pre
         return cloud
 
@@ -113,6 +110,12 @@ class SlamRunner:
             cloud = self._preprocess(laser)
         if self.skip_frames > 0:
             self.skip_frames -= 1
+            if self.skip_frames == 0 and self.resume_checkpoint:
+                from ..utils import checkpoint as ckpt
+
+                ckpt.load(self.resume_checkpoint, self._ensure_slam())
+                self.trajectory = [(t, p, 0.0)
+                                   for t, p in ckpt.trajectory_from(self.resume_checkpoint)]
             return False
         odom = self.odom_pre.process(msg)
         slam = self._ensure_slam()
@@ -142,3 +145,9 @@ class SlamRunner:
         if self.slam is not None and self.slam.phase_times:
             out["phases"] = {k: round(v, 3) for k, v in self.slam.phase_times.items()}
         return out
+
+    def draw(self, canvas) -> None:
+        """The map: every local map's scene at its pose, the trajectory and
+        the graph's edges (``slam.draw_map``)."""
+        if self.slam is not None:
+            draw_map(canvas, self.slam, self.trajectory)

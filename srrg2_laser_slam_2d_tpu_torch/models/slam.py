@@ -74,6 +74,30 @@ def frame_spec(cfg: GraphSLAMConfig) -> FrameSpec:
     )
 
 
+# scene colors of successive local maps in ``draw_map``
+MAP_COLORS = ("#1f77b4", "#ff7f0e", "#2ca02c", "#d62728", "#9467bd", "#8c564b")
+
+
+def draw_map(canvas, slam, trajectory) -> None:
+    """Draw a SLAM run (MultiGraphSLAM2D::draw): each local map's reference
+    frame and scene at its pose, the (timestamp, pose, ...) trajectory, and
+    the graph's edges between the maps' positions."""
+    poses = slam.poses_np
+    for m in range(slam.n_maps):
+        canvas.push_matrix()
+        canvas.mult_matrix(poses[m])
+        canvas.put_reference_system(0.3)
+        scene = slam.scene_of(m)
+        if scene is not None:
+            canvas.put_cloud(scene, color=MAP_COLORS[m % len(MAP_COLORS)])
+        canvas.pop_matrix()
+    if trajectory:
+        canvas.put_trajectory(np.stack([p for _, p, _ in trajectory]))
+    ei = np.array([e[0] for e in slam._edges_host], np.int64)
+    ej = np.array([e[1] for e in slam._edges_host], np.int64)
+    canvas.put_segments(poses[ei, :2], poses[ej, :2], color="gray")
+
+
 def _wrap(pose: np.ndarray) -> np.ndarray:
     """The pose with its angle wrapped to (-pi, pi], as ``geometry.compose``
     returns it."""

@@ -72,3 +72,39 @@ def rotate_vectors(pose: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     s = torch.sin(pose[..., 2])[..., None]
     x, y = vecs[..., 0], vecs[..., 1]
     return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+
+def rot(theta: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 2, 2] from angle [...]."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def exp_se2(v: torch.Tensor) -> torch.Tensor:
+    """The increment (vx, vy, omega) as a pose vector. The Gauss-Newton
+    updates pre-multiply ``v2t(dx)``, treating the increment as a small pose
+    rather than a true exponential, so this is the identity."""
+    return v
+
+
+def get3d_from_2d_pose(v: torch.Tensor) -> torch.Tensor:
+    """Pose vector (x, y, theta) -> 4x4 3D isometry [..., 4, 4]."""
+    x, y, t = v[..., 0], v[..., 1], v[..., 2]
+    c, s = torch.cos(t), torch.sin(t)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    rows = [
+        torch.stack([c, -s, zero, x], dim=-1),
+        torch.stack([s, c, zero, y], dim=-1),
+        torch.stack([zero, zero, one, zero], dim=-1),
+        torch.stack([zero, zero, zero, one], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
+def t2tqxyzw(v: torch.Tensor) -> torch.Tensor:
+    """Pose vector -> (x, y, z, qx, qy, qz, qw), the TUM trajectory row of a
+    2D pose."""
+    x, y, t = v[..., 0], v[..., 1], v[..., 2]
+    half = 0.5 * t
+    zero = torch.zeros_like(x)
+    return torch.stack([x, y, zero, zero, zero, torch.sin(half), torch.cos(half)], dim=-1)

@@ -1,7 +1,8 @@
 """Shipped pipeline presets: the LASER_0 assembly (one laser and wheel
 odometry) and the MULTI assembly (two lasers and wheel odometry).
-Counterpart of the presets of ``srrg2_laser_slam_2d_tpu/utils/presets.py``;
-the configuration classes register themselves in ``utils/config.py``.
+Counterpart of the presets of ``srrg2_laser_slam_2d_tpu/utils/presets.py``,
+with its default assembly for ``slam_app -j``; the configuration classes
+register themselves in ``utils/config.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..models.preprocessor import PreprocessorConfig
 from ..ops import icp
 from ..ops.projector import PolarProjection
 from ..solver import pgo
+from . import config as config_mod
 
 
 def reference_projection(num_beams: int = 721) -> PolarProjection:
@@ -90,3 +92,22 @@ def multi_slam(num_beams: int = 721, scene_capacity: int = 8192,
     return dataclasses.replace(
         cfg, cue_extrinsics=tuple(tuple(float(v) for v in e) for e in cue_extrinsics),
         tracker=dataclasses.replace(cfg.tracker, use_fused_aligner=use_fused_aligner))
+
+
+def default_config_manager(device=None):
+    """What ``slam_app -j`` writes: the complete LASER_0 assembly under the
+    names ``slam``, ``tracker``, ``aligner``, ``loop_detector``,
+    ``closure_validator``, ``relocalizer``, ``global_solver`` and
+    ``preprocessor``. ``use_fast_tracker`` follows ``device`` as in
+    ``laser0_slam``."""
+    mgr = config_mod.ConfigManager()
+    slam_cfg = laser0_slam(device=device)
+    mgr.add(slam_cfg, "slam")
+    mgr.add(slam_cfg.tracker, "tracker")
+    mgr.add(slam_cfg.tracker.aligner, "aligner")
+    mgr.add(slam_cfg.detector, "loop_detector")
+    mgr.add(slam_cfg.validator, "closure_validator")
+    mgr.add(slam_cfg.relocalizer, "relocalizer")
+    mgr.add(slam_cfg.global_solver, "global_solver")
+    mgr.add(laser0_preprocessor(), "preprocessor")
+    return mgr

@@ -1,7 +1,7 @@
 """The port's message-driven entry points on the CPU: ``SlamRunner`` and
 ``apps/generic_bench_app`` over a 40-step synthetic log (``--device cpu``:
-the plain PyTorch versions), the presets, and the options that are not
-ported. The log comes from the JAX package's ``bench/synthetic.simulate``
+the plain PyTorch versions), the presets, and the options the port still
+refuses. The log comes from the JAX package's ``bench/synthetic.simulate``
 (numpy arrays from a seed), written as JSONL by the port's own writer."""
 
 import json
@@ -93,14 +93,22 @@ def test_generic_bench_app_chunked_and_max_frames(log):
 
 
 def test_unported_options_raise(log):
+    """What the port still refuses: ``slam_app --boss-config`` (the BOSS files
+    are not in the repository) and ``generic_bench_app --checkpoint`` with
+    the chunked loop (checkpoints hold the per-message loop's state, as in
+    the JAX package). Resuming a ``SlamRunner`` from a checkpoint is ported."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
+
     d, _ = log
-    for extra in (["--carmen", "log.clf"], ["-i", str(d / "log.jsonl"), "--checkpoint", "c"]):
-        with pytest.raises(NotImplementedError):
-            app.main(extra + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="BOSS"):
+        slam_app.main(["--boss-config", "b.json", "-i", str(d / "log.jsonl"), "--device", "cpu"])
+    assert app.main(["-i", str(d / "log.jsonl"), "--checkpoint", str(d / "c.npz"),
+                     "--chunked", "16", "--device", "cpu"]) == -1
+    assert not (d / "c.npz").exists()
     assert app.main(["--device", "cpu"]) == -1
     assert trunner.SlamRunner(scan_topics=["/a", "/b"], device="cpu").scan_topics == ["/a", "/b"]
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        trunner.SlamRunner(resume_checkpoint="c.npz", device="cpu")
+    runner = trunner.SlamRunner(resume_checkpoint="c.npz", skip_frames=2, device="cpu")
+    assert runner.resume_checkpoint == "c.npz" and runner.skip_frames == 2
 
 
 def test_runner_takes_the_extrinsic_from_the_tf_tree_and_skips_frames(log, monkeypatch):

@@ -195,6 +195,37 @@ def test_world_trajectory_matches_jax(runs):
     _hold_trajectories(*runs)
 
 
+def test_draw_calls_match_jax(runs):
+    """``ChunkedSlamRunner.draw`` of both packages over the two runs on a
+    recording canvas: the same calls in the same order; poses, reference
+    frames, edges and trajectory within the trajectories' 1e-2, and each
+    scene's point count within 5 % (the scenes are built along trajectories
+    that drift apart by up to 1e-2)."""
+    from tests.test_torch_slam_app import RecordingCanvas
+
+    jslam, tslam = runs
+    calls = []
+    for slam, runner in ((jslam, jcs.ChunkedSlamRunner(chunk=CHUNK)),
+                         (tslam, tcs.ChunkedSlamRunner(chunk=CHUNK, device="cpu"))):
+        runner.slam = slam
+        runner.trajectory = [(0.1 * k, np.asarray(p), 0.0)
+                             for k, p in enumerate(slam.world_trajectory)]
+        canvas = RecordingCanvas()
+        runner.draw(canvas)
+        calls.append(canvas.calls)
+    jcalls, tcalls = calls
+    assert [c[0] for c in tcalls] == [c[0] for c in jcalls]
+    assert [c[0] for c in tcalls].count("put_cloud") == tslam.n_maps >= 8
+    for (name, tv), (_, jv) in zip(tcalls, jcalls):
+        for a, b in zip(tv, jv):
+            if isinstance(b, str):
+                assert a == b, name
+            elif name == "put_cloud":
+                assert abs(len(a) - len(b)) <= 0.05 * max(len(a), len(b)), (len(a), len(b))
+            else:
+                np.testing.assert_allclose(a, b, atol=1e-2, err_msg=name)
+
+
 def test_graph_and_closures_match_jax_projective(runs_projective):
     """The chunked loop on ``GraphSLAMConfig``'s default detector backend,
     closure pairs aligned by batched projective ICP in both packages, on the

@@ -226,3 +226,29 @@ def test_frame_step_chain_equals_one_grid_launch(chunk):
     torch.testing.assert_close(torch.stack(pays), gpay, rtol=0, atol=0)
     torch.testing.assert_close(p, gp, rtol=0, atol=0)
     torch.testing.assert_close(c, gc, rtol=0, atol=0)
+
+
+def test_iteration_stats_match_the_pallas_frame_step(scans):
+    """``FastTracker.iteration_stats`` (payload row 7: chi in lanes [0:its],
+    inliers in [64:64+its]) of the port's plain frame step against the JAX
+    tracker's, its Pallas ``frame_step`` in interpret mode, over three
+    frames from one seeded state: chi within 1e-5 relative, inliers
+    EQUAL."""
+    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as tft
+
+    jspec, stack, od, st = scans
+    sir = np.array(st.pose[1, 0:3], np.float32)
+    jtr = jft.FastTracker(jspec, sir)
+    jtr.state = st
+    ttr = tft.FastTracker(_tspec(jspec), sir, device="cpu")
+    ttr.state = state_from_numpy(st)
+    assert jtr.iteration_stats() is None and ttr.iteration_stats() is None
+    for t in range(1, 4):
+        cloud = jax.tree.map(lambda x: x[t], stack)
+        jtr.compute(cloud, np.array(od[t]))
+        ttr.compute(state_from_numpy(cloud), np.array(od[t]))
+        want, got = np.asarray(jtr.iteration_stats()), ttr.iteration_stats().numpy()
+        assert got.shape == want.shape == (jspec.iterations, 2)
+        assert (want[:, 1] > 0).all()
+        np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-5, atol=0)
+        np.testing.assert_array_equal(got[:, 1], want[:, 1])

@@ -42,11 +42,12 @@ def test_pose_pairs_match_jax(fn):
     assert np.all(np.abs(got[:, 2].numpy()) <= np.pi + 1e-6)
 
 
-@pytest.mark.parametrize("fn", ["inverse", "v2t", "wrap_angle"])
+@pytest.mark.parametrize("fn", ["inverse", "v2t", "wrap_angle", "rot", "exp_se2",
+                                "get3d_from_2d_pose", "t2tqxyzw"])
 def test_pose_maps_match_jax(fn):
     rng = np.random.default_rng(1)
     a = _poses(rng, 64)
-    arg = a[:, 2] * 3 if fn == "wrap_angle" else a
+    arg = {"wrap_angle": a[:, 2] * 3, "rot": a[:, 2]}.get(fn, a)
     _close(getattr(tgeo, fn)(torch.from_numpy(arg)),
            getattr(jgeo, fn)(jnp.asarray(arg)))
 

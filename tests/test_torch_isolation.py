@@ -1,7 +1,9 @@
 """The port stands alone: no module of srrg2_laser_slam_2d_tpu_torch and not
 chip_smoke.py imports ``jax`` or the JAX package (checked on the syntax
-tree of every file), and its entry points run on the CUDA card unless the
-caller asks for the CPU."""
+tree of every file), the modules of the ``slam_app`` slice import no
+``matplotlib`` either (the card's machine has none), its entry points run
+on the CUDA card unless the caller asks for the CPU, and its native
+loader builds under ``build/``, never under ``native/``."""
 
 import ast
 from pathlib import Path
@@ -235,3 +237,57 @@ def test_multicue_and_probe_wrappers_take_the_plain_version_only_for_cpu_tensors
         mak.fused_projective_align_multi(proj, xy.repeat(3, 1, 1), nm.repeat(3, 1, 1),
                                          valid.repeat(3, 1), extr.repeat(3, 1), xy[0], nm[0],
                                          valid[0], torch.zeros(3))
+
+
+SLAM_APP_MODULES = (
+    "apps/slam_app.py", "apps/generic_bench_app.py", "io/carmen.py", "io/native_loader.py",
+    "utils/checkpoint.py", "viz/__init__.py", "viz/canvas.py", "utils/config.py",
+    "utils/presets.py", "utils/geometry.py", "models/preprocessor.py", "models/runner.py",
+    "models/slam.py", "models/chunked_slam.py", "models/fast_tracker.py", "bench/synthetic.py",
+)
+
+
+@pytest.mark.parametrize("module", SLAM_APP_MODULES)
+def test_slam_app_modules_import_neither_jax_nor_matplotlib(module):
+    path = ROOT / "srrg2_laser_slam_2d_tpu_torch" / module
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN + ("matplotlib",)]
+    assert not bad, (module, bad)
+
+
+def test_slam_app_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = str(tmp_path / "cfg.json")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slam_app.main(["-j", "-c", path])
+    assert slam_app.main(["-j", "-c", path, "--device", "cpu"]) == 0
+
+
+def test_native_loader_builds_under_build_and_writes_nothing_under_native(tmp_path,
+                                                                           monkeypatch):
+    """A fresh build of the native loader: the library goes where
+    ``LIBRARY`` says (``build/torch_native/`` by default), and ``native/``
+    is left as it was, file by file."""
+    from srrg2_laser_slam_2d_tpu_torch.io import native_loader as nl
+
+    native = ROOT / "native"
+
+    def snapshot():
+        return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in native.iterdir()}
+
+    assert nl.LIBRARY.parent == ROOT / "build" / "torch_native"
+    assert nl.SOURCE == native / "dataloader.cpp"
+    before = snapshot()
+    monkeypatch.setattr(nl, "LIBRARY", tmp_path / "libdataloader.so")
+    monkeypatch.setattr(nl, "_LIB", None)
+    monkeypatch.setattr(nl, "_LIB_TRIED", False)
+    assert nl.available()
+    assert (tmp_path / "libdataloader.so").exists()
+    assert [p.name for p in tmp_path.iterdir()] == ["libdataloader.so"]
+    log = tmp_path / "one.clf"
+    log.write_text("FLASER 3 1.0 2.0 3.0 0 0 0 0 0 0 1.5 host 1.5\n")
+    out = nl.load_carmen_arrays(str(log))
+    assert out["backend"] == "native" and out["ranges"].tolist() == [[1.0, 2.0, 3.0]]
+    assert snapshot() == before
