@@ -105,7 +105,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      iteration) on one route-D frame of the log against its plain version
      from the same state, chi within 1e-3 relative, inliers equal; (e)
      ``slam_app -j`` writes the default assembly, which reads back equal;
-  11. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+  11. large pose graphs, the other finders and the idle share, every
+     launch counter set to 0 before each corridor run and read after it:
+     (a) the city-scale lattice of ``bench/pgo_bench`` through ``run`` at
+     sides 256, 512 and 1,024 (1,048,576 nodes, 2,111,233 edges; sorted
+     segment sums and chunked linearization above 100k nodes), 4 GN x 100
+     CG iterations: chi before, after and per GN iteration, seconds per GN
+     iteration, peak device memory; finite poses and chi reduced; the
+     largest side once more with ``index_add_`` scatters beside it; (b) Schur
+     on ``make_chain_graph(65536)`` at P = 512 and ``(262144)`` at P =
+     1,024 (the separator-PCG branch), 3 GN iterations: chi per iteration,
+     seconds per iteration; finite poses and every step inside the
+     divergence guard's bound (the float32 elimination of chain interiors
+     fails in the reference too: the guard stalls the solve or admits a
+     step that raises chi, by the order of the atomic sums, so the larger
+     chain is solved 4 more times and each outcome printed); 650
+     partitions refused (the P % 256 rule); (c) Levenberg-Marquardt on
+     tests/test_pgo.py's seeded circle: chi never rises, the solution
+     within 1e-3 of the port's on the CPU; (d) the corridor through
+     ``ChunkedSlamRunner`` under ``corridor.json`` with
+     ``global_solver_kind`` "cg", then "schur" (in memory): the frame kernel
+     launched 3 times, the NN-ICP kernel at least once, a solve reaching the
+     solver, a finite trajectory; gate, ATE and closures printed beside
+     phase 6's dense run (not asserted); (e) ``icp.align`` with the
+     ``nn_grid`` and ``bruteforce`` finders on the corridor's first two
+     scans on the card against the port on the CPU: estimates within 1e-4,
+     the nearest field's indices equal; (f) the card's idle share
+     (``profiling.device_trace`` / ``idle_share``), each in its own traced
+     run after an untraced one whose wall is printed beside the traced
+     window: the corridor chunked loop (dense), route D over 300 corridor
+     frames, the MULTI loop over 100 steps, one GN iteration of (a)'s
+     largest CG solve and of (b)'s largest Schur solve
+     (``chiprun_out/idle_shares.json``);
+  12. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
      launches on its main path (the probes: their own probe runs), its error
      against the plain version, its time, the plain version's time, its
      bound and the time of one PyTorch call that computes the same function
@@ -113,10 +145,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
 ``chiprun_out/chip_smoke.json`` (phase 10's launches of kernels 1 and 2 also
 under ``slam_app_corridor_launches`` and ``carmen_per_message_launches`` of
-their entries). Nothing of the earlier paths is cut.
+their entries, phase 11's under ``corridor_cg_launches`` and
+``corridor_schur_launches``). Nothing of the earlier paths is cut.
 ``--only message-kernels`` / ``--only message-path`` / ``--only multi`` /
-``--only slam-app`` run the build and part 5, part 8, part 9 or part 10
-alone while developing, and print no result lines. ``bench/compare_csrc.py`` reuses the check functions to time
+``--only slam-app`` / ``--only solvers`` run the build and part 5, part 8,
+part 9, part 10 or part 11 alone while developing, and print no result
+lines. ``bench/compare_csrc.py`` reuses the check functions to time
 every kernel call this script times against other CUDA sources.
 
 Tolerances. Kernel and plain version run the same float32 operations in
@@ -1975,11 +2009,395 @@ def slam_app_slice(corridor: dict, device) -> dict:
             "checkpoint": resume, "iteration_stats": iters, "generated_config": config}
 
 
+# ------------------------- large pose graphs, finders, idle shares (phase 11)
+
+CITY_SIDES = (256, 512, 1024)
+CITY_GN, CITY_CG = 4, 100          # the TPU run pgo_1m_r05's budget
+SCHUR_CHAINS = ((65536, 512), (262144, 1024))
+SCHUR_GN = 3                       # bench/schur_scale_bench.py's iterations
+SCHUR_REFUSED_PARTS = 650          # >= 512 and not a multiple of 256
+SCHUR_REPEATS = 4
+LM_CIRCLE = dict(n=20, noise=0.15, seed=3)    # tests/test_pgo.py::test_lm_never_increases_chi
+LM_ITERATIONS = 30
+FINDER_TOL = 1e-4
+ROUTE_D_TRACE_FRAMES = 300
+MULTI_TRACE_STEPS = 100
+TRACE_DIR = "build/traces"         # full traces (too large for chiprun_out/)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_bytes(device):
+    return torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" \
+        else None
+
+
+def city_scale_runs(device) -> list[dict]:
+    """(a) The city-scale lattice through ``pgo_bench.run`` at each of
+    ``CITY_SIDES`` (above 100k nodes: sorted segment sums and chunked
+    linearization), 4 GN x 100 CG iterations: chi before, after and per GN
+    iteration, seconds per GN iteration, peak device memory."""
+    import dataclasses
+
+    from srrg2_laser_slam_2d_tpu_torch.bench import pgo_bench
+
+    out = []
+    for side in CITY_SIDES:
+        r = pgo_bench.run(side, gn_iterations=CITY_GN, cg_iterations=CITY_CG, reps=1,
+                          device=device)
+        row = dataclasses.asdict(r)
+        log(f"city-scale lattice, side {side}: {json.dumps(row)}")
+        assert r.finite, f"side {side}: poses not finite"
+        assert np.isfinite(r.chi1) and r.chi1 < r.chi0, row
+        out.append(row)
+    # the largest side once more with index_add_ scatters and unchunked
+    # linearization (``large=False``), beside the sorted sums above
+    r = pgo_bench.run(CITY_SIDES[-1], gn_iterations=CITY_GN, cg_iterations=CITY_CG, reps=1,
+                      large=False, device=device)
+    row = {"large": False, **dataclasses.asdict(r)}
+    log(f"city-scale lattice, side {CITY_SIDES[-1]}, index_add_ scatters: {json.dumps(row)}")
+    assert r.finite and r.chi1 < r.chi0, row
+    out.append(row)
+    return out
+
+
+def schur_outcome(chis: list, graph, solved) -> str:
+    """How a Schur run on a chain ended: its chi sequence (initial, after
+    each iteration) must keep the divergence guard's bound, every step's
+    chi within 1e3 x the one before + 1e3 (the reference's contract on
+    graphs whose float32 elimination fails); "stalled" where the guard
+    kept every pose, else "reduced" or "grew"."""
+    assert np.isfinite(chis).all(), chis
+    assert all(b <= 1e3 * a + 1e3 for a, b in zip(chis, chis[1:])), chis
+    if torch.equal(solved.poses, graph.poses):
+        return "stalled"
+    return "reduced" if chis[-1] < chis[0] else "grew"
+
+
+def schur_chain_runs(device) -> list[dict]:
+    """(b) Schur on the multi-session chains: ``SCHUR_CHAINS`` (nodes,
+    partitions), the second past the dense separator solve's 8,192 rows;
+    ``SCHUR_GN`` GN iterations; finite poses and the guard's bound on chi
+    (``schur_outcome``); the last chain solved ``SCHUR_REPEATS`` more times
+    (its outcome varies between runs: the float32 elimination of chain
+    interiors fails, and the order of the atomic sums decides whether the
+    guard admits the step); then ``SCHUR_REFUSED_PARTS`` partitions must be
+    refused (the chunked elimination's P % 256 rule)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import pgo_bench
+    from srrg2_laser_slam_2d_tpu_torch.solver import pgo, schur
+
+    out = []
+    for n, parts in SCHUR_CHAINS:
+        g = pgo_bench.make_chain_graph(n, device=device)
+        sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        part = schur.partition_graph(g, parts)
+        t1 = time.perf_counter()
+        stats: list[dict] = []
+        solved, chi, it = schur.optimize_schur(pgo.PGOConfig(max_iterations=SCHUR_GN), g, part,
+                                               stats=stats)
+        sync(device)
+        t2 = time.perf_counter()
+        chi0, chi1 = pgo_bench.edge_chi(g), pgo_bench.edge_chi(solved)
+        d_s = 3 * part.separator_cap
+        row = {"nodes": n, "edges": int(g.edge_valid.sum()), "partitions": parts,
+               "interior_cap": part.interior_cap, "local_separator_cap": part.sep_local_cap,
+               "separator_rows": d_s,
+               "separator_solve": "dense" if d_s <= schur.DENSE_SEPARATOR_ROWS else "pcg",
+               "partition_s": t1 - t0, "chi0": chi0, "chi1": chi1,
+               "chi_per_iteration": [s["chi"] for s in stats], "iterations": it,
+               "seconds_per_iteration": (t2 - t1) / max(it, 1),
+               "peak_device_bytes": peak_bytes(device)}
+        assert bool(torch.isfinite(solved.poses).all()), row
+        row["outcome"] = schur_outcome([s["chi"] for s in stats] + [chi1], g, solved)
+        log(f"Schur chain: {json.dumps(row)}")
+        out.append(row)
+    repeats = []
+    for _ in range(SCHUR_REPEATS):
+        stats = []
+        solved, _, _ = schur.optimize_schur(pgo.PGOConfig(max_iterations=SCHUR_GN), g, part,
+                                            stats=stats)
+        assert bool(torch.isfinite(solved.poses).all())
+        chi1 = pgo_bench.edge_chi(solved)
+        repeats.append({"chi1": chi1,
+                        "outcome": schur_outcome([s["chi"] for s in stats] + [chi1], g,
+                                                 solved)})
+    out[-1]["repeats"] = repeats
+    log(f"Schur chain {SCHUR_CHAINS[-1]}, {SCHUR_REPEATS} more solves: {json.dumps(repeats)}")
+    g = pgo_bench.make_chain_graph(SCHUR_CHAINS[0][0], device=device)
+    try:
+        schur.optimize_schur(pgo.PGOConfig(max_iterations=1), g,
+                             schur.partition_graph(g, SCHUR_REFUSED_PARTS))
+    except ValueError as e:
+        log(f"Schur, {SCHUR_REFUSED_PARTS} partitions refused: {e}")
+    else:
+        raise AssertionError(f"{SCHUR_REFUSED_PARTS} partitions were not refused")
+    return out
+
+
+def circle_graph(n: int, noise: float, seed: int, device):
+    """tests/test_pgo.py's circle graph (noisy odometry around a circle of n
+    steps, an exact closure from the last pose to the first) from the same
+    seed, through the port's geometry."""
+    from srrg2_laser_slam_2d_tpu_torch.solver import pgo
+    from srrg2_laser_slam_2d_tpu_torch.utils import geometry
+
+    rng = np.random.default_rng(seed)
+    step = torch.tensor([2 * np.pi * 5.0 / n, 0.0, 2 * np.pi / n])
+    gt = [torch.zeros(3)]
+    for _ in range(n - 1):
+        gt.append(geometry.compose(gt[-1], step))
+    est, meas = [gt[0]], []
+    for k in range(1, n):
+        z = geometry.relative(gt[k - 1], gt[k]).numpy() \
+            + rng.normal(scale=noise, size=3).astype(np.float32)
+        meas.append(z)
+        est.append(geometry.compose(est[-1], torch.from_numpy(z)))
+    meas.append(geometry.relative(gt[n - 1], gt[0]).numpy())
+    poses = np.zeros((32, 3), np.float32)
+    poses[:n] = torch.stack(est).numpy()
+    ei, ej = np.zeros(64, np.int64), np.zeros(64, np.int64)
+    ei[:n], ej[:n] = list(range(n - 1)) + [n - 1], list(range(1, n)) + [0]
+    em = np.zeros((64, 3), np.float32)
+    em[:n] = np.stack(meas)
+    return pgo.graph_from_numpy(poses, np.arange(32) < n, np.arange(32) == 0, ei, ej, em,
+                                np.ones((64, 3), np.float32), np.arange(64) < n, device=device)
+
+
+def lm_run(device) -> dict:
+    """(c) Levenberg-Marquardt on the seeded circle: the chi it returns
+    after 1, 2, ... ``LM_ITERATIONS`` iterations never rises above the one
+    before (nor the first above the initial chi), and the card's solution
+    lies within 1e-3 of the port's on the CPU."""
+    from srrg2_laser_slam_2d_tpu_torch.solver import pgo
+
+    g = circle_graph(device=device, **LM_CIRCLE)
+    chis = [float(pgo.graph_chi(g))]
+    for k in range(1, LM_ITERATIONS + 1):
+        _, chi, it = pgo.optimize(pgo.PGOConfig(max_iterations=k, algorithm="lm"), g)
+        chis.append(float(chi))
+        if it < k:
+            break
+    cfg = pgo.PGOConfig(max_iterations=LM_ITERATIONS, algorithm="lm")
+    card, chi, it = pgo.optimize(cfg, g)
+    cpu, cpu_chi, cpu_it = pgo.optimize(cfg, pgo.PoseGraph(*(x.cpu() for x in g)))
+    diff = float((card.poses.cpu() - cpu.poses).abs().max())
+    out = {"chi_per_iteration": chis, "iterations": it, "cpu_iterations": cpu_it,
+           "chi": float(chi), "cpu_chi": float(cpu_chi), "max_pose_diff_vs_cpu": diff}
+    log(f"LM on the circle graph: {json.dumps(out)}")
+    assert all(b <= a * (1 + 1e-6) + 1e-9 for a, b in zip(chis, chis[1:])), chis
+    assert np.isfinite(chis).all() and diff < 1e-3, out
+    return out
+
+
+def corridor_solver_runs(msgs, slam_cfg, pcfg, device, dense: dict) -> dict:
+    """(d) The corridor through ``ChunkedSlamRunner`` under
+    ``corridor.json`` with ``global_solver_kind`` "cg", then "schur" (in
+    memory; the file stays as it is): the frame kernel launched 3 times and
+    the NN-ICP kernel at least once from counters set to 0 before each run,
+    at least one call reaching the solver, a finite trajectory; the gate,
+    ATE and closures printed beside the dense run's (not asserted: no
+    package has run the corridor on these solvers before)."""
+    import dataclasses
+
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, nn_icp_kernel
+    from srrg2_laser_slam_2d_tpu_torch.solver import cg, schur
+
+    keys = ("gate_verdict", "ate_rmse_translation_m", "closures", "graph_variables",
+            "graph_factors", "wall_s")
+    out = {}
+    for kind, mod, name in (("cg", cg, "optimize_cg"), ("schur", schur, "optimize_schur")):
+        solve, calls = getattr(mod, name), []
+
+        def counted(*a, solve=solve, calls=calls, **kw):
+            calls.append(1)
+            return solve(*a, **kw)
+
+        setattr(mod, name, counted)
+        try:
+            frame_kernel.launches = 0
+            nn_icp_kernel.launches = 0
+            summary, runner = corridor_e2e.run_configs(
+                dataclasses.replace(slam_cfg, global_solver_kind=kind), pcfg, CHUNK, None,
+                device, msgs)
+            sync(device)
+            summary["launches"] = {"frame_kernel": frame_kernel.launches,
+                                   "nn_icp_kernel": nn_icp_kernel.launches}
+        finally:
+            setattr(mod, name, solve)
+        summary["solver_calls"] = len(calls)
+        traj = np.stack([p for _, p, _ in runner.trajectory])
+        log(f"corridor, global solver {kind}: {json.dumps(summary)}")
+        log(f"corridor, {kind} against dense: " + json.dumps(
+            {kind: {k: summary[k] for k in keys},
+             "dense": {k: dense.get(k) for k in keys}}))
+        assert summary["frames"] == 2871 and traj.shape == (2871, 3) and np.isfinite(traj).all()
+        assert summary["launches"]["frame_kernel"] == 3, summary["launches"]
+        assert summary["launches"]["nn_icp_kernel"] >= 1, summary["launches"]
+        assert summary["solver_calls"] >= 1, f"no solve reached {name}"
+        out[kind] = summary
+    return out
+
+
+def finder_runs(msgs, slam_cfg, pcfg, device) -> dict:
+    """(e) ``icp.align`` with the ``nn_grid`` and ``bruteforce`` finders on
+    the corridor's first two scans (tests/test_finder_plugins.py's settings:
+    512 x 512 grid at 0.05 m, 0.5 m match distance, 10 iterations) on the
+    card against the port on the CPU from the same clouds: estimates within
+    ``FINDER_TOL``, the nearest field's indices EQUAL."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+    from srrg2_laser_slam_2d_tpu_torch.ops import distance_map, icp
+
+    clouds, _ = corridor_e2e.first_frames(msgs, 2, pcfg, device)
+    fixed, moving = clouds.map(lambda x: x[0]), clouds.map(lambda x: x[1])
+    proj = slam_cfg.tracker.projection
+    out = {}
+    for finder in ("nn_grid", "bruteforce"):
+        cfg = icp.AlignerConfig(max_iterations=10, finder=finder, finder_max_distance=0.5,
+                                finder_resolution=0.05, finder_grid_size=512)
+        icp.align(cfg, proj, fixed, moving, torch.zeros(3, device=device))
+        sync(device)
+        t0 = time.perf_counter()
+        card = icp.align(cfg, proj, fixed, moving, torch.zeros(3, device=device))
+        sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cpu = icp.align(cfg, proj, fixed.to("cpu"), moving.to("cpu"), torch.zeros(3))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        err = float((card.estimate.cpu() - cpu.estimate).abs().max())
+        out[finder] = {"estimate": card.estimate.cpu().tolist(),
+                       "cpu_estimate": cpu.estimate.tolist(), "max_abs_err": err,
+                       "correspondences": int(card.num_correspondences),
+                       "cpu_correspondences": int(cpu.num_correspondences),
+                       "iterations": int(card.iterations), "align_ms": ms,
+                       "cpu_align_ms": cpu_ms}
+        log(f"finder {finder}, card against CPU: {json.dumps(out[finder])}")
+        assert err <= FINDER_TOL, out[finder]
+    f_card = distance_map.build(fixed, 512, 512, 0.05)
+    f_cpu = distance_map.build(fixed.to("cpu"), 512, 512, 0.05)
+    out["nn_grid"]["field_idx_equal"] = bool(torch.equal(f_card.idx.cpu(), f_cpu.idx))
+    out["nn_grid"]["field_dist2_max_diff"] = float((f_card.dist2.cpu() - f_cpu.dist2).abs().max())
+    assert out["nn_grid"]["field_idx_equal"], "nearest field indices differ"
+    return out
+
+
+def busiest_kernels(events: list, n: int = 5) -> list:
+    """The ``n`` kernels with the most device time in a Chrome trace's
+    events: [name, launches, total us]."""
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            row = by_name.setdefault(e["name"][:100], [0, 0.0])
+            row[0] += 1
+            row[1] += float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]
+    return [[name, c, round(us, 1)] for name, (c, us) in top]
+
+
+def traced(name: str, run) -> dict:
+    """``run()`` once untimed-by-the-profiler (its wall clock), then under
+    ``profiling.device_trace``: the card's idle share over the traced
+    window, the window, its busy time, and the busiest kernels. The
+    tracer's own host work stretches the window, so the untraced wall is
+    printed beside it."""
+    from srrg2_laser_slam_2d_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    with profiling.device_trace(os.path.join(TRACE_DIR, name)) as path:
+        run()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    busy_ms = sum(b - a for a, b in profiling.busy_intervals(events)) / 1e3
+    idle = profiling.idle_share(events)
+    out = {"idle_share": idle, "device_busy_ms": busy_ms,
+           "traced_window_s": busy_ms / 1e3 / (1.0 - idle), "untraced_wall_s": untraced,
+           "trace_bytes": os.path.getsize(path), "events": len(events),
+           "busiest_kernels": busiest_kernels(events)}
+    log(f"idle share, {name}: {json.dumps(out)}")
+    assert 0.0 <= out["idle_share"] < 1.0
+    return out
+
+
+def idle_share_runs(msgs, device) -> dict:
+    """(f) The card's idle share, each in its own traced run: the corridor
+    chunked loop under ``corridor.json`` (dense solver), route D over the
+    first ``ROUTE_D_TRACE_FRAMES`` corridor frames, the MULTI loop over its
+    first ``MULTI_TRACE_STEPS`` steps; and the two large solves, one GN
+    iteration each: CG on the largest lattice (100 CG iterations, one host
+    synchronisation each), Schur on the largest chain. Written to
+    ``chiprun_out/idle_shares.json``; the traces stay under ``TRACE_DIR``."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e, pgo_bench
+    from srrg2_laser_slam_2d_tpu_torch.io.sources import ListSource, SynchronizedSource
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+    from srrg2_laser_slam_2d_tpu_torch.solver import cg, pgo, schur
+    from srrg2_laser_slam_2d_tpu_torch.utils import config as config_mod
+    from srrg2_laser_slam_2d_tpu_torch.utils import presets
+
+    mgr = config_mod.ConfigManager.read("configurations/corridor.json")
+    dual, _ = dual_drive(device)
+    side = CITY_SIDES[-1]
+    lattice = pgo_bench.make_grid_graph(side, edge_align=pgo_bench.EDGE_CHUNK, device=device)
+    order = cg.prepare_edge_order(lattice)
+    cg_cfg = cg.CGConfig(gn_iterations=1, cg_iterations=CITY_CG, jac_chunk=pgo_bench.EDGE_CHUNK)
+    n_chain, parts = SCHUR_CHAINS[-1]
+    chain = pgo_bench.make_chain_graph(n_chain, device=device)
+    chain_part = schur.partition_graph(chain, parts)
+
+    def route_d():
+        runner = SlamRunner(slam_config=mgr.get_by_name("slam"),
+                            preprocessor_config=mgr.get_by_name("preprocessor"), device=device)
+        assert runner.run(ListSource(msgs), ROUTE_D_TRACE_FRAMES) == ROUTE_D_TRACE_FRAMES
+
+    def multi():
+        runner = SlamRunner(slam_config=presets.multi_slam(MULTI_BEAMS, 8192, device=device),
+                            preprocessor_config=multi_preprocessor(), base_frame="base_frame",
+                            device=device, scan_topics=["/scan_0", "/scan_1"],
+                            sensor_frames=list(MULTI_FRAMES))
+        topics = ["/tf", "/odom", "/scan_0", "/scan_1"]
+        n = runner.run(SynchronizedSource(ListSource(dual), topics, time_interval=0.1),
+                       MULTI_TRACE_STEPS)
+        assert n == MULTI_TRACE_STEPS
+
+    out = {"corridor_chunked_dense": traced("corridor_chunked_dense", lambda: corridor_e2e.run_pass(
+               "configurations/corridor.json", CHUNK, None, device, msgs)),
+           f"route_d_{ROUTE_D_TRACE_FRAMES}": traced("route_d", route_d),
+           f"multi_{MULTI_TRACE_STEPS}": traced("multi", multi),
+           f"cg_lattice_{side}x{side}_one_gn": traced(
+               "cg_lattice", lambda: cg.optimize_cg(cg_cfg, lattice, order)),
+           f"schur_chain_{n_chain}_p{parts}_one_gn": traced(
+               "schur_chain", lambda: schur.optimize_schur(pgo.PGOConfig(max_iterations=1),
+                                                           chain, chain_part))}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "idle_shares.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def solvers_slice(msgs, slam_cfg, pcfg, device, dense: dict) -> dict:
+    """Every part of phase 11."""
+    return {"city_scale": city_scale_runs(device), "schur_chains": schur_chain_runs(device),
+            "lm": lm_run(device),
+            "corridor_solvers": corridor_solver_runs(msgs, slam_cfg, pcfg, device, dense),
+            "finders": finder_runs(msgs, slam_cfg, pcfg, device),
+            "idle_shares": idle_share_runs(msgs, device)}
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
-    ap.add_argument("--only", choices=["message-kernels", "message-path", "multi", "slam-app"],
+    ap.add_argument("--only", choices=["message-kernels", "message-path", "multi", "slam-app",
+                                       "solvers"],
                     default=None,
                     help="while developing: run the build and this part alone; "
                          "prints no result lines")
@@ -2024,6 +2442,9 @@ def main() -> int:
         message_routes_run(slam_cfg, pcfg, msgs, device)
         route_d_run(msgs)
         return 0
+    if args.only == "solvers":
+        solvers_slice(msgs, slam_cfg, pcfg, device, {})
+        return 0
     stream_entry = check_stream_kernel(device)
     kernels = [check_frame_kernel(msgs, slam_cfg, pcfg, device),
                check_nn_icp_kernel(slam_cfg.detector, device), stream_entry,
@@ -2040,6 +2461,7 @@ def main() -> int:
     route_d = route_d_run(msgs)
     multi = multi_path(device)
     slice10 = slam_app_slice(main_run, device)
+    slice11 = solvers_slice(msgs, slam_cfg, pcfg, device, main_run)
     # each kernel's launches on ITS main path, counted from 0 over that path
     by_route = {r["route"]: r["launches"] for r in routes}
     launches = {**main_run["launches"], **throughput["launches"],
@@ -2059,6 +2481,11 @@ def main() -> int:
         for k in kernels:
             if k["name"] in slice10[part]["launches"]:
                 k[f"{part}_launches"] = slice10[part]["launches"][k["name"]]
+    # what phase 11 adds: kernels 1 and 2 through the corridor on the cg and schur solvers
+    for kind, run in slice11["corridor_solvers"].items():
+        for k in kernels:
+            if k["name"] in run["launches"]:
+                k[f"corridor_{kind}_launches"] = run["launches"][k["name"]]
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2068,7 +2495,8 @@ def main() -> int:
                    "per_message": {"route_d": route_d, "routes": routes,
                                    "one_local_map": one_map},
                    "multicue_bench": multi["multicue_bench"], "multi_loop": multi["multi_loop"],
-                   "slam_app": slice10, "seconds": time.perf_counter() - t_start}, f, indent=1)
+                   "slam_app": slice10, "solvers": slice11,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -74,16 +74,25 @@ def first_frames(messages: list, n: int, pcfg, device):
 
 def run_pass(cfg_path: str, chunk: int, max_frames: int | None, device=None,
              messages: list | None = None):
-    """One pass over the corridor log. Returns (summary dict, runner)."""
+    """One pass over the corridor log under a configuration file. Returns
+    (summary dict, runner)."""
+    from ..utils import config as config_mod
+
+    mgr = config_mod.ConfigManager.read(cfg_path)
+    return run_configs(mgr.get_by_name("slam"), mgr.get_by_name("preprocessor"), chunk,
+                       max_frames, device, messages)
+
+
+def run_configs(slam_cfg, pre_cfg, chunk: int, max_frames: int | None, device=None,
+                messages: list | None = None):
+    """One pass over the corridor log under the given SLAM and
+    preprocessor configurations. Returns (summary dict, runner)."""
     from ..io import tum
     from ..io.sources import ListSource
     from ..models.chunked_slam import ChunkedSlamRunner
-    from ..utils import config as config_mod
     from . import suite as suite_mod
 
-    mgr = config_mod.ConfigManager.read(cfg_path)
-    runner = ChunkedSlamRunner(slam_config=mgr.get_by_name("slam"),
-                               preprocessor_config=mgr.get_by_name("preprocessor"),
+    runner = ChunkedSlamRunner(slam_config=slam_cfg, preprocessor_config=pre_cfg,
                                chunk=chunk, device=device)
     msgs = load_messages() if messages is None else messages
     t0 = time.perf_counter()

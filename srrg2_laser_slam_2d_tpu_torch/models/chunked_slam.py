@@ -60,6 +60,8 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         self._pool: Cloud | None = None
         # most candidate pairs one NN-ICP launch aligns
         self.detect_batch = 128
+        # solved poses on the device, fetched at the next chunk's stats read
+        self._pending_poses: torch.Tensor | None = None
 
     # ---- scene pool ---------------------------------------------------------
     def _pool_ensure(self, n: int) -> None:
@@ -90,7 +92,27 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
     def robot_in_world(self) -> np.ndarray:
         if self.current_map < 0:
             return np.zeros(3, np.float32)
-        return lc.compose_np(self._poses_host[self.current_map], self._X_host)
+        return lc.compose_np(self.poses_np[self.current_map], self._X_host)
+
+    @property
+    def poses_np(self) -> np.ndarray:
+        self._fetch_poses()
+        return self._poses_host
+
+    def _fetch_poses(self) -> None:
+        if self._pending_poses is not None:
+            self._poses_host = self._pending_poses.cpu().numpy()
+            self._pending_poses = None
+
+    def _global_solve(self) -> None:
+        """With the relocalizer off nothing reads the poses before the next
+        chunk, so their fetch waits for that chunk's stats read and the
+        solve's last launches overlap the chunk's."""
+        solved = self._solve_graph().poses[: self.n_maps]
+        if self.cfg.enable_relocalizer:
+            self._poses_host = solved.cpu().numpy()
+        else:
+            self._pending_poses = solved
 
     def scene_of(self, m: int) -> Cloud | None:
         """Scene of local map ``m``: the tracker's for the current map, else
@@ -143,6 +165,7 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
 
         # ---- the chunk's one read of the kernel's stats ---------------------
         stats = payloads[:, 6, :12].cpu().numpy()
+        self._fetch_poses()
         t0 = self._phase("track", t0)
         if n_g <= 0:
             return np.zeros((0, 3), np.float32)

@@ -30,7 +30,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.frame_kernel import FrameSpec
-from ..solver import pgo
+from ..solver import cg, pgo, schur
 from ..utils.cloud import Cloud
 from . import fast_tracker as fast_mod
 from . import loop_closure as lc
@@ -113,9 +113,6 @@ class GraphSLAM2D:
 
     def __init__(self, cfg: GraphSLAMConfig = GraphSLAMConfig(),
                  sensor_in_robot=None, device=None):
-        if cfg.global_solver_kind != "dense":
-            raise NotImplementedError(
-                f"global solver {cfg.global_solver_kind!r} is not ported; use 'dense'")
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.cue_extrinsics is not None:
@@ -180,7 +177,7 @@ class GraphSLAM2D:
         nv, ne = self.n_maps, self.n_edges
         vc, ec = pgo.round_capacity(nv), pgo.round_capacity(max(ne, 1))
         poses = np.zeros((vc, 3), np.float32)
-        poses[:nv] = self._poses_host
+        poses[:nv] = self.poses_np
         var_fixed = np.zeros(vc, bool)
         var_fixed[:nv] = self._fixed_host
         ei, ej = np.zeros(ec, np.int64), np.zeros(ec, np.int64)
@@ -192,9 +189,27 @@ class GraphSLAM2D:
         return pgo.graph_from_numpy(poses, np.arange(vc) < nv, var_fixed, ei, ej,
                                     meas, info, evalid, device=self.device)
 
+    def _solve_graph(self) -> pgo.PoseGraph:
+        """The global pose-graph solve on ``global_solver_kind``'s solver:
+        ``cg`` (matrix-free PCG), ``schur`` (partitioned elimination), any
+        other kind the dense solver. Returns the solved graph."""
+        graph, _, _ = pgo.trim(self.graph, self.n_maps, self.n_edges)
+        kind, gs = self.cfg.global_solver_kind, self.cfg.global_solver
+        if kind == "cg":
+            solved, _, _ = cg.optimize_cg(
+                cg.CGConfig(gn_iterations=gs.max_iterations, epsilon=gs.epsilon,
+                            chi_threshold=gs.chi_threshold), graph)
+        elif kind == "schur":
+            n_parts = min(self.cfg.schur_partitions, max(self.n_maps // 2, 1))
+            part = schur.partition_graph(graph, n_parts, n_vars=self.n_maps,
+                                         n_edges=self.n_edges)
+            solved, _, _ = schur.optimize_schur(gs, graph, part)
+        else:
+            solved, _, _ = pgo.optimize(gs, graph)
+        return solved
+
     def _global_solve(self) -> None:
-        solved, _, _ = pgo.optimize(self.cfg.global_solver, self.graph)
-        self._poses_host = solved.poses[: self.n_maps].cpu().numpy()
+        self._poses_host = self._solve_graph().poses[: self.n_maps].cpu().numpy()
 
     # ---- accessors -----------------------------------------------------------
     def num_variables(self) -> int:

@@ -7,8 +7,10 @@ linearization, the odometry prior and the outer loop ``align``.
 Every function takes leading batch dimensions, so one call aligns a query
 scene against K candidate scenes (the JAX package maps ``align`` over them)
 and ``align_multi`` matches all cues of a multi-rangefinder robot in one
-batched call. The ``nn_grid`` / ``bruteforce`` finders are not ported;
-selecting them raises.
+batched call. ``AlignerConfig.finder`` picks the correspondence finder:
+``projective`` (beam space), ``nn_grid`` (a jump-flooded nearest field,
+built once per ``align`` call) or ``bruteforce`` (exact bounded nearest
+neighbour), the last two in ``ops/correspond.py``.
 """
 
 from __future__ import annotations
@@ -246,19 +248,37 @@ def align(cfg: AlignerConfig, proj: PolarProjection, fixed: Cloud, moving: Cloud
     """Full multi-iteration alignment; ``initial`` and the estimate are
     moving-in-fixed poses [..., 3]. ``fixed`` carries the batch dimensions
     of ``initial``; ``moving`` may have none and is then shared."""
-    if cfg.finder != "projective":
-        raise NotImplementedError(f"correspondence finder {cfg.finder!r} is not ported; "
-                                  "use 'projective'")
     batch = initial.shape[:-1]
     if moving.xy.dim() == 2 and batch:
         moving = moving.map(lambda x: x.expand(batch + x.shape))
-    fixed_canvas = projector_op.project_local(proj, fixed)
+    if cfg.finder == "projective":
+        fixed_canvas = projector_op.project_local(proj, fixed)
+
+        def find(estimate):
+            return find_projective(proj, fixed_canvas, fixed, moving, estimate,
+                                   cfg.point_distance, cfg.normal_cos)
+    elif cfg.finder == "nn_grid":
+        from . import correspond, distance_map
+
+        field = distance_map.build(fixed, cfg.finder_grid_size, cfg.finder_grid_size,
+                                   cfg.finder_resolution)
+
+        def find(estimate):
+            return correspond.find_nn_grid(field, fixed, moving, estimate,
+                                           cfg.finder_max_distance, cfg.normal_cos)
+    elif cfg.finder == "bruteforce":
+        from . import correspond
+
+        def find(estimate):
+            return correspond.find_bruteforce_nn(fixed, moving, estimate,
+                                                 cfg.finder_max_distance, cfg.normal_cos)
+    else:
+        raise ValueError(f"unknown finder {cfg.finder!r}")
     eye = torch.eye(3, device=initial.device)
 
     def make_iteration(inlier_only: bool):
         def iteration(estimate):
-            corr = find_projective(proj, fixed_canvas, fixed, moving, estimate,
-                                   cfg.point_distance, cfg.normal_cos)
+            corr = find(estimate)
             n_corr = corr.valid.sum(-1)
             H, b, chi, n_inl, chi_inl_sum = p2p_linearize(
                 estimate, fixed, moving, corr, cfg.chi_threshold, inlier_only=inlier_only)

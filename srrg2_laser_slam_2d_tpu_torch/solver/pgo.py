@@ -1,8 +1,9 @@
 """SE(2) pose-graph optimization: dense Gauss-Newton over geodesic
 pose-pose edges. Counterpart of ``srrg2_laser_slam_2d_tpu/solver/pgo.py``
-(``PGOConfig``, ``PoseGraph``, ``linearize``, ``solve_spd_scaled``,
-``optimize`` with ``algorithm="gn"``, ``trim`` / ``untrim_poses``); the
-Levenberg-Marquardt variant is not ported yet.
+(``PGOConfig``, ``PoseGraph``, ``linearize``, ``solve_spd_scaled`` and its
+batched form, ``optimize`` with ``algorithm="gn"`` or ``"lm"``, ``trim`` /
+``untrim_poses``). The loops' exit tests read chi on the host once per
+iteration.
 
 Everything stays float32, as in the reference. The per-edge Jacobians are
 written out: for the pre-multiplied increments, with A = R(theta_i +
@@ -165,11 +166,51 @@ def solve_spd_scaled(H: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx))
 
 
+def solve_spd_scaled_batched(H: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched form of ``solve_spd_scaled``: H [P, n, n], B [P, n, k] ->
+    [P, n, k] (the Schur interior eliminations, one solve per partition)."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+    Hs = H / d[..., :, None] / d[..., None, :]
+    X, _ = torch.linalg.solve_ex(Hs, B / d[..., :, None])
+    X = X / d[..., :, None]
+    return torch.where(torch.isfinite(X), X, torch.zeros_like(X))
+
+
+def decayed(chi: float, chi_prev: float, epsilon: float) -> bool:
+    """The chi-decay exit test of every GN / LM loop."""
+    return abs(chi_prev - chi) < epsilon * max(chi_prev, 1e-20)
+
+
+def _optimize_lm(cfg: PGOConfig, graph: PoseGraph, diag_extra, movable):
+    """Levenberg-Marquardt: lambda * diag(H) on the diagonal, a step kept
+    only where chi falls, lambda divided / multiplied by
+    ``lm_lambda_factor`` on accept / reject and clipped to [1e-9, 1e8]."""
+    v = graph.var_capacity
+    poses = graph.poses
+    lam = torch.tensor(cfg.lm_lambda_init, dtype=torch.float32, device=poses.device)
+    it, chi, chi_prev = 0, float("inf"), float("inf")
+    chi_t = torch.tensor(chi)
+    while it < cfg.max_iterations and not (it > 1 and decayed(chi, chi_prev, cfg.epsilon)):
+        H, b, chi_lin, _ = linearize(graph._replace(poses=poses), cfg.chi_threshold)
+        H = H + torch.diag(diag_extra)
+        dx = solve_spd_scaled(H + lam * torch.diag(torch.diagonal(H)), -b).reshape(v, 3)
+        dx = torch.where(movable, dx, torch.zeros_like(dx))
+        cand = geometry.compose(dx, poses)
+        chi_new = graph_chi(graph, cand)
+        accept = chi_new < chi_lin
+        poses = torch.where(accept, cand, poses)
+        lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_factor,
+                                      lam * cfg.lm_lambda_factor), 1e-9, 1e8)
+        chi_t = torch.where(accept, chi_new, chi_lin)
+        chi_prev, chi = float(chi_lin), float(chi_t)
+        it += 1
+    return graph._replace(poses=poses), chi_t, it
+
+
 def optimize(cfg: PGOConfig, graph: PoseGraph):
-    """Gauss-Newton with chi-decay termination and the divergence guard.
-    Returns (graph with solved poses, final chi, iterations run)."""
-    if cfg.algorithm != "gn":
-        raise NotImplementedError(f"PGO algorithm {cfg.algorithm!r} is not ported")
+    """Gauss-Newton with chi-decay termination and the divergence guard, or
+    Levenberg-Marquardt (``cfg.algorithm == "lm"``). Returns (graph with
+    solved poses, final chi, iterations run)."""
     v = graph.var_capacity
     diag_extra = torch.where(
         graph.var_fixed | ~graph.var_valid,
@@ -177,13 +218,12 @@ def optimize(cfg: PGOConfig, graph: PoseGraph):
         torch.full((v,), cfg.damping, device=graph.poses.device),
     ).repeat_interleave(3)
     movable = (graph.var_valid & ~graph.var_fixed)[:, None]
+    if cfg.algorithm == "lm":
+        return _optimize_lm(cfg, graph, diag_extra, movable)
     poses = graph.poses
     it, chi, chi_prev = 0, float("inf"), float("inf")
     chi_t = torch.tensor(chi)
-    while it < cfg.max_iterations:
-        decayed = abs(chi_prev - chi) < cfg.epsilon * max(chi_prev, 1e-20)
-        if it > 1 and decayed:
-            break
+    while it < cfg.max_iterations and not (it > 1 and decayed(chi, chi_prev, cfg.epsilon)):
         H, b, chi_t, _ = linearize(graph._replace(poses=poses), cfg.chi_threshold)
         H = H + torch.diag(diag_extra)
         dx = solve_spd_scaled(H, -b).reshape(v, 3)

@@ -255,6 +255,38 @@ def test_slam_app_modules_import_neither_jax_nor_matplotlib(module):
     assert not bad, (module, bad)
 
 
+SOLVER_FINDER_MODULES = (
+    "utils/profiling.py", "solver/pgo.py", "solver/cg.py", "solver/schur.py",
+    "bench/pgo_bench.py", "ops/distance_map.py", "ops/correspond.py", "ops/icp.py",
+    "models/slam.py", "models/chunked_slam.py",
+)
+
+
+@pytest.mark.parametrize("module", SOLVER_FINDER_MODULES)
+def test_solver_and_finder_modules_import_neither_jax_nor_the_jax_package(module):
+    path = ROOT / "srrg2_laser_slam_2d_tpu_torch" / module
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, (module, bad)
+
+
+def test_solver_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from srrg2_laser_slam_2d_tpu_torch.bench import pgo_bench
+    from srrg2_laser_slam_2d_tpu_torch.models.chunked_slam import ChunkedGraphSLAM2D
+    from srrg2_laser_slam_2d_tpu_torch.models.slam import GraphSLAM2D, GraphSLAMConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pgo_bench.run(4, gn_iterations=1, cg_iterations=2, reps=1)
+    assert pgo_bench.run(4, gn_iterations=1, cg_iterations=2, reps=1,
+                         device="cpu").device == "cpu"
+    for kind in ("cg", "schur"):
+        cfg = GraphSLAMConfig(global_solver_kind=kind, enable_loop_closure=False)
+        for make in (GraphSLAM2D, ChunkedGraphSLAM2D):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make(cfg)
+            assert make(cfg, device="cpu").device == torch.device("cpu")
+
+
 def test_slam_app_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
 

@@ -159,7 +159,7 @@ def test_fast_tracker_route_builds_the_same_graph_as_the_plain_tracker():
 def test_selector_and_unported_options():
     """``select`` gives one query's candidates in the order ``select_many``
     gives them; multi-cue tracking builds the multi-cue tracker; the cg /
-    schur solvers raise."""
+    schur global solvers construct on the CPU."""
     rng = np.random.default_rng(3)
     poses = np.concatenate([rng.uniform(-2, 2, (12, 2)), np.zeros((12, 1))], 1).astype(np.float32)
     adjacency = [set() for _ in range(12)]
@@ -174,8 +174,10 @@ def test_selector_and_unported_options():
     multi = tslam_mod.GraphSLAM2D(tslam_mod.GraphSLAMConfig(cue_extrinsics=((0, 0, 0),)),
                                   device="cpu")
     assert type(multi.tracker).__name__ == "MultiCueTracker"
-    with pytest.raises(NotImplementedError, match="schur"):
-        tslam_mod.GraphSLAM2D(tslam_mod.GraphSLAMConfig(global_solver_kind="schur"), device="cpu")
+    for kind in ("schur", "cg"):
+        slam = tslam_mod.GraphSLAM2D(tslam_mod.GraphSLAMConfig(global_solver_kind=kind),
+                                     device="cpu")
+        assert slam.cfg.global_solver_kind == kind and slam.device == torch.device("cpu")
     assert tslam_mod.GraphSLAM2D(device="cpu").robot_in_world().tolist() == [0, 0, 0]
     monkey = torch.cuda.is_available
     try:

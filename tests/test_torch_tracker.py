@@ -160,8 +160,15 @@ def test_align_over_a_batch_equals_one_by_one_and_other_finders_raise(scans):
         np.testing.assert_allclose(res.estimate[k].numpy(), one.estimate.numpy(), atol=1e-6)
         assert int(res.iterations[k]) == int(one.iterations)
         assert int(res.num_inliers[k]) == int(one.num_inliers)
-    with pytest.raises(NotImplementedError, match="nn_grid"):
-        ticp.align(dataclasses.replace(cfg, finder="nn_grid"), TP, fixed[0], moving, inits[0])
+    # the grid and brute-force finders run (held to the JAX package in
+    # tests/test_torch_finders.py); a finder the reference does not have raises
+    for finder in ("nn_grid", "bruteforce"):
+        other = dataclasses.replace(cfg, finder=finder, finder_max_distance=0.5)
+        res = ticp.align(other, TP, batch, moving, inits)
+        one = ticp.align(other, TP, fixed[1], moving, inits[1])
+        np.testing.assert_allclose(res.estimate[1].numpy(), one.estimate.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="kdtree"):
+        ticp.align(dataclasses.replace(cfg, finder="kdtree"), TP, fixed[0], moving, inits[0])
 
 
 # ------------------------------------------------------- clip and mergers
