@@ -137,7 +137,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      frames, the MULTI loop over 100 steps, one GN iteration of (a)'s
      largest CG solve and of (b)'s largest Schur solve
      (``chiprun_out/idle_shares.json``);
-  12. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+  12. the last modules of the port, every launch counter set to 0 before
+     each run and read after it: (a) ``bench/pipeline.track_sequence`` on
+     routes A and B over the first 64 corridor frames from one populated
+     state, against the same frames stepped one by one through
+     ``track_step`` (within 1e-4), the banded / dense aligner kernel launched
+     once a tracked frame (63); (b) ``bench/ablate --frames 64 --reps 1`` (its 25
+     rows, each one call after a warm-up, one synchronisation, to
+     ``chiprun_out/ablate.json``; kernels 1, 4 and 5 launched); (c) the whole
+     corridor drive ray-cast on the card (2,871 poses, 1,024 beams, 9,836
+     wall segments) against the numpy loop on every 64th pose: the largest
+     range difference of the beams that hit in both (within 1e-3 m) and the
+     count of beams whose hit/miss differs (at most 0.1 %); (d)
+     ``synthetic_scene_generator --world corridors`` on the card, its log
+     held against the committed ``bench/data/corridor.jsonl`` (the same
+     tolerances over all 2,871 scans, the odometry within 1e-5); (e)
+     ``corridor_report`` on phase 6's trajectory, ``visual_tests --stage
+     all`` and ``param_reference`` (each PNG's structure checked, the
+     markdown's size); (f) ``run_native_baseline`` (the C++ baseline built
+     with ``g++`` into ``build/``) on the corridor: its wall, ATE and gate
+     beside phase 6's run; (g) route D over the first 300 corridor frames
+     with the ranges staged on the card by ``io/prefetch.DevicePrefetcher``
+     against the same run fed from the host: the same graph counters, poses
+     within 1e-6 m; then in a one-rank NCCL group (a correctness run of the
+     collective path: one card measures no scaling) (h)
+     ``dryrun_multichip(1)``, (i) ``optimize_sharded`` and
+     ``optimize_schur_sharded`` against ``pgo.optimize`` and
+     ``optimize_schur`` on the 4,096-node lattice (3 Gauss-Newton
+     iterations; Schur at P = 64; poses within 1e-4 and 1e-3, with
+     ``index_add_`` summing in a fixed order on both sides; the
+     single-device solver's run-to-run spread under its default atomic
+     sums printed beside), (j)
+     ``parallel/scaling.main`` (one row a measurement; kernel 3 launched);
+  13. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
      launches on its main path (the probes: their own probe runs), its error
      against the plain version, its time, the plain version's time, its
      bound and the time of one PyTorch call that computes the same function
@@ -146,10 +178,12 @@ The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
 ``chiprun_out/chip_smoke.json`` (phase 10's launches of kernels 1 and 2 also
 under ``slam_app_corridor_launches`` and ``carmen_per_message_launches`` of
 their entries, phase 11's under ``corridor_cg_launches`` and
-``corridor_schur_launches``). Nothing of the earlier paths is cut.
-``--only message-kernels`` / ``--only message-path`` / ``--only multi`` /
-``--only slam-app`` / ``--only solvers`` run the build and part 5, part 8,
-part 9, part 10 or part 11 alone while developing, and print no result
+``corridor_schur_launches``, phase 12's under ``track_sequence_launches``,
+``ablate_launches`` and ``scaling_launches``). Nothing of the earlier paths
+is cut. ``--only message-kernels`` / ``--only message-path`` / ``--only
+multi`` / ``--only slam-app`` / ``--only solvers`` / ``--only port-rest`` run
+the build and part 5, part 8, part 9, part 10, part 11 or part 12 (with a
+corridor run of its own) alone while developing, and print no result
 lines. ``bench/compare_csrc.py`` reuses the check functions to time
 every kernel call this script times against other CUDA sources.
 
@@ -2392,12 +2426,356 @@ def solvers_slice(msgs, slam_cfg, pcfg, device, dense: dict) -> dict:
             "idle_shares": idle_share_runs(msgs, device)}
 
 
+
+# ---------------------------------------------------------------- phase 12
+
+PORT_REST_FRAMES = 64               # track_sequence / ablate frames
+ABLATE_REPS = 1
+CORRIDOR_BEAMS = 1024               # the committed corridor log's beams
+RAYCAST_NUMPY_STRIDE = 64           # every 64th pose against the numpy loop (45 poses)
+RAYCAST_TOL_M = 1e-3
+PREFETCH_FRAMES = 300
+PREFETCH_POSE_TOL_M = 1e-6          # the same frames and ranges: the same poses
+SHARDED_GRID_SIDE = 64              # 4,096 nodes: a 12,288-row dense Hessian
+SHARDED_SCHUR_PARTS = 64
+SHARDED_GN = 3
+PORT_REST_DIR = "build/port_rest"   # the generated corridor log (too large for chiprun_out/)
+
+
+def track_sequence_runs(msgs, slam_cfg, pcfg, device) -> dict:
+    """(a) ``bench/pipeline.track_sequence`` on routes A and B over the first
+    ``PORT_REST_FRAMES`` corridor frames from one populated state, against
+    the same frames stepped one by one through ``track_step``; the aligner
+    kernel launched once a tracked frame, counted from 0."""
+    import dataclasses
+
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e, pipeline
+    from srrg2_laser_slam_2d_tpu_torch.models import tracker as tr
+
+    clouds, odoms = corridor_e2e.first_frames(msgs, PORT_REST_FRAMES, pcfg, device)
+    odoms = torch.from_numpy(odoms).to(device)
+    T = PORT_REST_FRAMES - 1
+    rest, ov = clouds.map(lambda x: x[1:]), torch.ones(T, dtype=torch.bool, device=device)
+    out = {}
+    for route, kernel, flags in (("A", "banded_align_kernel", MESSAGE_ROUTES[0][1]),
+                                 ("B", "projective_align_kernel", MESSAGE_ROUTES[3][1])):
+        cfg = dataclasses.replace(slam_cfg.tracker, **flags)
+        s0 = tr.populate(cfg, tr.init_state(cfg, device=device), pipeline.tree_index(clouds, 0))
+        s0 = s0._replace(last_odom=odoms[0], has_odom=torch.ones((), dtype=torch.bool,
+                                                                 device=device))
+        reset_launches()
+        t0 = time.perf_counter()
+        fin, (poses, chi, inl) = pipeline.track_sequence(cfg, s0, rest, odoms[1:], ov)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st, stepped = s0, []
+        for k in range(T):
+            st, _ = tr.track_step(cfg, st, pipeline.tree_index(rest, k), odoms[1 + k], ov[k])
+            stepped.append(st.robot_in_local_map)
+        diff = float((torch.stack(stepped) - poses).abs().max())
+        out[route] = {"frames": T, "wall_s": wall, "ms_per_frame": wall / T * 1e3,
+                      "max_abs_diff_to_stepped": diff,
+                      "end_pose": poses[-1].cpu().tolist(),
+                      "min_inliers": int(inl.min()),
+                      "launches": {k: v for k, v in launches.items() if v}}
+        log(f"track_sequence route {route}, {T} corridor frames: {json.dumps(out[route])}")
+        assert torch.isfinite(poses).all() and diff <= 1e-4, (route, diff)
+        assert launches[kernel] == T, (route, launches)
+    return out
+
+
+def ablate_run(device) -> dict:
+    """(b) ``bench/ablate`` at ``--frames 64``, its rows to
+    ``chiprun_out/ablate.json``; the launches of kernels 1, 4 and 5 summed
+    over its rows."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import ablate
+
+    reset_launches()
+    out = ablate.main(["--frames", str(PORT_REST_FRAMES), "--reps", str(ABLATE_REPS),
+                       "--json-out", os.path.join(OUT_DIR, "ablate.json"),
+                       "--device", device.type])
+    launches = read_launches()
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    names = [r["name"] for r in out["rows"]]
+    log(f"ablate: {len(names)} rows, launches {json.dumps(out['launches'])}")
+    assert len(names) == 25 and all(
+        np.isfinite(r.get("ms_per_frame", r.get("ms_per_call", np.nan))) for r in out["rows"])
+    for k in ("frame_kernel", "projective_align_kernel", "banded_align_kernel"):
+        assert launches[k] > 0, (k, launches)
+    return out
+
+
+def corridor_raycast(msgs, device) -> dict:
+    """(c) The whole corridor drive ray-cast on the card at the committed
+    log's 1,024 beams (2,871 poses), every ``RAYCAST_NUMPY_STRIDE``-th pose
+    against the numpy loop on the host; then (d) ``synthetic_scene_generator
+    --world corridors`` (the ray cast on the card, the noise drawn on the
+    host) writes the log, whose ranges are held against the committed
+    ``bench/data/corridor.jsonl`` and its odometry equal."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import synthetic_scene_generator as gen
+    from srrg2_laser_slam_2d_tpu_torch.bench import synthetic
+    from srrg2_laser_slam_2d_tpu_torch.io.messages import LaserMessage, OdometryMessage
+    from srrg2_laser_slam_2d_tpu_torch.io.sources import JsonlFileSource
+    from srrg2_laser_slam_2d_tpu_torch.ops.projector import PolarProjection
+
+    cfg = synthetic.CorridorConfig(num_beams=CORRIDOR_BEAMS)
+    _, seg_a, seg_b = synthetic.corridor_geometry(cfg)
+    proj = PolarProjection.make(
+        cols=cfg.num_beams, angle_min=cfg.angle_min, angle_max=cfg.angle_max,
+        range_min=cfg.range_min, range_max=cfg.range_max)
+    poses = synthetic.corridor_trajectory(cfg)
+    synthetic.raycast_ranges(proj, poses[:16], seg_a, seg_b, device)       # warm-up
+    t0 = time.perf_counter()
+    on_card = synthetic.raycast_ranges(proj, poses, seg_a, seg_b, device)
+    card_s = time.perf_counter() - t0
+    sub = poses[::RAYCAST_NUMPY_STRIDE]
+    t0 = time.perf_counter()
+    on_host = synthetic.raycast_ranges(proj, sub, seg_a, seg_b, "cpu")
+    host_s = time.perf_counter() - t0
+    card_sub = on_card[::RAYCAST_NUMPY_STRIDE]
+    both = (card_sub > 0) & (on_host > 0)
+    flips = int(((card_sub > 0) != (on_host > 0)).sum())
+    out = {"poses": len(poses), "beams": cfg.num_beams, "segments": len(seg_a),
+           "card_s": card_s, "numpy_poses": len(sub), "numpy_s": host_s,
+           "numpy_s_per_pose": host_s / len(sub),
+           "max_range_diff_m": float(np.abs(card_sub - on_host)[both].max()),
+           "hit_miss_flips": flips, "beams_compared": int(on_host.size)}
+    os.makedirs(PORT_REST_DIR, exist_ok=True)
+    path = os.path.join(PORT_REST_DIR, "corridor_generated.jsonl")
+    t0 = time.perf_counter()
+    gen.main(["-m", path, "--world", "corridors", "--device", device.type])
+    out["generator_s"] = time.perf_counter() - t0
+    made = list(JsonlFileSource(path))
+    rm = np.stack([np.asarray(m.ranges, np.float32) for m in made if isinstance(m, LaserMessage)])
+    rc = np.stack([np.asarray(m.ranges, np.float32) for m in msgs if isinstance(m, LaserMessage)])
+    om = np.stack([m.pose for m in made if isinstance(m, OdometryMessage)])
+    oc = np.stack([m.pose for m in msgs if isinstance(m, OdometryMessage)])
+    hit = (rm > 0) & (rc > 0)
+    out["generated_vs_committed"] = {
+        "messages": [len(made), len(msgs)], "max_range_diff_m": float(np.abs(rm - rc)[hit].max()),
+        "hit_miss_flips": int(((rm > 0) != (rc > 0)).sum()), "beams": int(rc.size),
+        "max_odometry_diff": float(np.abs(om - oc).max())}
+    log(f"corridor ray cast on the card: {json.dumps(out)}")
+    assert on_card.shape == (len(poses), cfg.num_beams) and np.isfinite(on_card).all()
+    assert out["max_range_diff_m"] <= RAYCAST_TOL_M and flips <= 1e-3 * on_host.size, out
+    g = out["generated_vs_committed"]
+    assert len(made) == len(msgs) and rm.shape == rc.shape, g
+    assert g["max_range_diff_m"] <= RAYCAST_TOL_M and g["hit_miss_flips"] <= 1e-3 * rc.size, g
+    assert g["max_odometry_diff"] <= 1e-5, g
+    os.remove(path)
+    return out
+
+
+def visual_apps_run(corridor_tum: str, device) -> dict:
+    """(e) ``corridor_report`` on the corridor run's trajectory,
+    ``visual_tests --stage all`` and ``param_reference``: each file there,
+    the PNGs well formed."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import corridor_report, param_reference, visual_tests
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+
+    report = corridor_report.main(["--gt", corridor_e2e.GROUND_TRUTH, "--est", corridor_tum,
+                                   "-o", os.path.join(OUT_DIR, "corridor_report.png")])
+    stages = visual_tests.main(["--stage", "all", "--outdir", os.path.join(OUT_DIR, "visual"),
+                                "--device", device.type])
+    md = os.path.join(OUT_DIR, "PARAMETERS.md")
+    param_reference.main(["-o", md])
+    out = {"corridor_report": png_check(report),
+           "visual_tests": {os.path.basename(p): png_check(p) for p in stages},
+           "param_reference_bytes": os.path.getsize(md)}
+    log(f"visual apps: {json.dumps(out)}")
+    assert len(stages) == 6 and all(v["bytes"] > 1000 for v in out["visual_tests"].values())
+    assert out["param_reference_bytes"] > 1000
+    return out
+
+
+def native_baseline_run(corridor: dict) -> dict:
+    """(f) The C++ baseline on the corridor on this host, beside the port's
+    corridor run (the gated ``corridor.json`` run)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+
+    t0 = time.perf_counter()
+    res = corridor_e2e.run_native_baseline()
+    res["with_build_s"] = time.perf_counter() - t0
+    res["port_corridor"] = {k: corridor[k] for k in ("wall_s", "ate_rmse_translation_m",
+                                                     "gate_verdict", "closures")}
+    log(f"native baseline on the corridor: {json.dumps(res)}")
+    assert "error" not in res, res
+    assert res["frames"] == 2871 and np.isfinite(res["ate_rmse_translation_m"])
+    return res
+
+
+def prefetch_route_d(msgs, slam_cfg, pcfg, device) -> dict:
+    """(g) Route D over the first ``PREFETCH_FRAMES`` corridor frames with
+    the laser ranges staged on the card by ``io/prefetch.DevicePrefetcher``,
+    against the same run fed from host arrays: the same graph counters, the
+    poses within ``PREFETCH_POSE_TOL_M``."""
+    import copy
+
+    from srrg2_laser_slam_2d_tpu_torch.io.messages import LaserMessage
+    from srrg2_laser_slam_2d_tpu_torch.io.prefetch import DevicePrefetcher
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+
+    lasers = [i for i, m in enumerate(msgs) if isinstance(m, LaserMessage)]
+    head = msgs[:lasers[PREFETCH_FRAMES - 1] + 1]
+
+    def staged():
+        for i, m in enumerate(head):
+            yield {"i": i, "ranges": (np.asarray(m.ranges, np.float32)
+                                      if isinstance(m, LaserMessage) else None)}
+
+    runs = {}
+    for name in ("host", "prefetched"):
+        runner = SlamRunner(slam_config=slam_cfg, preprocessor_config=pcfg, device=device)
+        t0 = time.perf_counter()
+        if name == "host":
+            for m in head:
+                runner.put_message(m)
+        else:
+            for item in DevicePrefetcher(staged(), depth=4, device=device):
+                m = head[item["i"]]
+                if item["ranges"] is not None:
+                    assert item["ranges"].device.type == device.type
+                    m = copy.copy(m)
+                    m.ranges = item["ranges"]
+                runner.put_message(m)
+        torch.cuda.synchronize()
+        slam = runner.slam
+        runs[name] = {"wall_s": time.perf_counter() - t0, "frames": len(runner.trajectory),
+                      "graph_variables": slam.num_variables(),
+                      "graph_factors": slam.num_factors(), "closures": slam.num_closures,
+                      "relocalizations": slam.relocalizations,
+                      "poses": np.stack([p for _, p, _ in runner.trajectory])}
+    h, p = runs["host"], runs["prefetched"]
+    out = {name: {k: v for k, v in r.items() if k != "poses"} for name, r in runs.items()}
+    out["max_pose_diff_m"] = float(np.abs(h["poses"][:, :2] - p["poses"][:, :2]).max())
+    log(f"route D with the prefetcher, {PREFETCH_FRAMES} frames: {json.dumps(out)}")
+    assert p["frames"] == h["frames"] == PREFETCH_FRAMES
+    for k in ("graph_variables", "graph_factors", "closures", "relocalizations"):
+        assert p[k] == h[k], (k, out)
+    assert out["max_pose_diff_m"] <= PREFETCH_POSE_TOL_M, out
+    return out
+
+
+@contextlib.contextmanager
+def nccl_world_of_one(device):
+    """A one-rank NCCL process group for the collective path on one card."""
+    import tempfile
+
+    import torch.distributed as dist
+    from srrg2_laser_slam_2d_tpu_torch.parallel import multihost
+
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.init_multiprocess(0, 1, "file://" + os.path.join(tmp, "rdv"), device=device)
+        try:
+            assert dist.get_backend() == "nccl"
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``index_add_`` on the card sums in a fixed order (not by atomics)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def sharded_solver_runs(device) -> dict:
+    """(i) ``optimize_sharded`` and ``optimize_schur_sharded`` at world size
+    1 under NCCL against ``pgo.optimize`` and ``optimize_schur`` on the
+    4,096-node lattice (``SHARDED_GN`` Gauss-Newton iterations; Schur at P =
+    ``SHARDED_SCHUR_PARTS``): poses within 1e-4 and 1e-3, both sides with
+    ``index_add_`` summing in a fixed order. With its atomic sums (the
+    default) the single-device solver's own run-to-run spread is printed
+    beside (3 iterations on a 12,288-row float32 system carry the sums'
+    order to some 1e-3)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import pgo_bench
+    from srrg2_laser_slam_2d_tpu_torch.parallel import dist_pgo
+    from srrg2_laser_slam_2d_tpu_torch.solver import pgo, schur
+
+    graph = pgo_bench.make_grid_graph(SHARDED_GRID_SIDE, device=device)
+    n = SHARDED_GRID_SIDE ** 2
+    cfg = pgo.PGOConfig(max_iterations=SHARDED_GN)
+    part = schur.partition_graph(graph, n_parts=SHARDED_SCHUR_PARTS, n_vars=n)
+    pairs = {"dense": (lambda: dist_pgo.optimize_sharded(cfg, dist_pgo.shard_edges(graph), None),
+                       lambda: pgo.optimize(cfg, graph)),
+             "schur": (lambda: schur.optimize_schur_sharded(cfg, graph, part),
+                       lambda: schur.optimize_schur(cfg, graph, part))}
+    out = {"nodes": n, "hessian_rows": 3 * graph.var_capacity}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        solved, chi, it = fn()
+        sync(device)
+        return time.perf_counter() - t0, solved.poses, float(chi), it
+
+    for name, (sharded, single) in pairs.items():
+        with deterministic():
+            runs = [timed(sharded), timed(single)]
+        atomic = [timed(single), timed(single)]
+        out[name] = {"sharded_s": runs[0][0], "single_s": runs[1][0],
+                     "iterations": [runs[0][3], runs[1][3]], "chi": [runs[0][2], runs[1][2]],
+                     "max_pose_diff": float((runs[0][1] - runs[1][1]).abs().max()),
+                     "atomic_sums_single_s": atomic[1][0],
+                     "atomic_sums_spread": float((atomic[0][1] - atomic[1][1]).abs().max())}
+    log(f"sharded solvers at world size 1 (NCCL; a correctness run, no scaling): "
+        f"{json.dumps(out)}")
+    assert out["dense"]["max_pose_diff"] <= 1e-4, out
+    assert out["schur"]["max_pose_diff"] <= 1e-3, out
+    return out
+
+
+def port_rest_slice(msgs, slam_cfg, pcfg, device, corridor: dict, corridor_tum: str) -> dict:
+    """Every part of phase 12."""
+    from srrg2_laser_slam_2d_tpu_torch.parallel import dryrun, scaling
+
+    out = {"track_sequence": track_sequence_runs(msgs, slam_cfg, pcfg, device),
+           "ablate": ablate_run(device), "raycast": corridor_raycast(msgs, device),
+           "visual_apps": visual_apps_run(corridor_tum, device),
+           "native_baseline": native_baseline_run(corridor),
+           "prefetch_route_d": prefetch_route_d(msgs, slam_cfg, pcfg, device)}
+    with nccl_world_of_one(device):
+        out["dryrun"] = dryrun.dryrun_multichip(1, device)
+        assert out["dryrun"]["backend"] == "nccl"
+        out["sharded_solvers"] = sharded_solver_runs(device)
+        reset_launches()
+        out["scaling"] = scaling.main(["--what", "all", "--device", device.type,
+                                       "--out", os.path.join(OUT_DIR, "scaling.json")])
+        out["scaling"]["launches"] = {k: v for k, v in read_launches().items() if v}
+    log(f"scaling at world size 1 (no scaling measured): launches "
+        f"{json.dumps(out['scaling']['launches'])}")
+    assert out["scaling"]["launches"]["stream_kernel"] > 0
+    assert all(len(out["scaling"][k]) == 1 for k in ("pgo", "align", "schur", "streams"))
+    return out
+
+
+def port_rest_corridor(msgs, device) -> tuple[dict, str]:
+    """The gated corridor run for ``--only port-rest`` (phase 6's in the
+    whole script) and its trajectory as a TUM file."""
+    summary, runner = corridor_run("configurations/corridor.json", msgs, device)
+    return summary, write_corridor_tum(runner)
+
+
+def write_corridor_tum(runner) -> str:
+    from srrg2_laser_slam_2d_tpu_torch.io import tum
+
+    path = os.path.join(OUT_DIR, "corridor.tum")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tum.write_tum(path, [t for t, _, _ in runner.trajectory], [p for _, p, _ in runner.trajectory])
+    return path
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
     ap.add_argument("--only", choices=["message-kernels", "message-path", "multi", "slam-app",
-                                       "solvers"],
+                                       "solvers", "port-rest"],
                     default=None,
                     help="while developing: run the build and this part alone; "
                          "prints no result lines")
@@ -2445,23 +2823,40 @@ def main() -> int:
     if args.only == "solvers":
         solvers_slice(msgs, slam_cfg, pcfg, device, {})
         return 0
+    if args.only == "port-rest":
+        port_rest_slice(msgs, slam_cfg, pcfg, device, *port_rest_corridor(msgs, device))
+        return 0
     stream_entry = check_stream_kernel(device)
     kernels = [check_frame_kernel(msgs, slam_cfg, pcfg, device),
                check_nn_icp_kernel(slam_cfg.detector, device), stream_entry,
                *check_message_kernels(msgs, slam_cfg, pcfg, device)]
 
+    def stamp(phase: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
+
+    stamp("kernel checks")
     capture = DetectionCapture()
-    main_run, _ = corridor_run("configurations/corridor.json", msgs, device, capture)
+    main_run, main_runner = corridor_run("configurations/corridor.json", msgs, device, capture)
+    corridor_tum = write_corridor_tum(main_runner)
     lean_run, _ = corridor_run("configurations/corridor_lean.json", msgs, device)
     kernels[1]["corridor_batch"] = check_nn_icp_corridor(capture.batch)
     projective_run = corridor_projective_run(msgs, device, main_run)
+    stamp("corridor")
     throughput = headline_run(device)
+    stamp("throughput")
     one_map = routes_in_one_map(slam_cfg, pcfg, msgs, device)
     routes = message_routes_run(slam_cfg, pcfg, msgs, device)
+    stamp("per-message routes")
     route_d = route_d_run(msgs)
+    stamp("route D")
     multi = multi_path(device)
+    stamp("MULTI path")
     slice10 = slam_app_slice(main_run, device)
+    stamp("slam_app slice")
     slice11 = solvers_slice(msgs, slam_cfg, pcfg, device, main_run)
+    stamp("solvers slice")
+    slice12 = port_rest_slice(msgs, slam_cfg, pcfg, device, main_run, corridor_tum)
+    stamp("last modules")
     # each kernel's launches on ITS main path, counted from 0 over that path
     by_route = {r["route"]: r["launches"] for r in routes}
     launches = {**main_run["launches"], **throughput["launches"],
@@ -2487,6 +2882,17 @@ def main() -> int:
             if k["name"] in run["launches"]:
                 k[f"corridor_{kind}_launches"] = run["launches"][k["name"]]
 
+    # what phase 12 adds: kernels 5 and 4 through track_sequence, 1, 4 and 5
+    # through ablate, 3 through the scaling harness
+    for part, launched in (
+            ("track_sequence", {k: v for r in slice12["track_sequence"].values()
+                                for k, v in r["launches"].items()}),
+            ("ablate", slice12["ablate"]["launches"]),
+            ("scaling", slice12["scaling"]["launches"])):
+        for k in kernels:
+            if k["name"] in launched:
+                k[f"{part}_launches"] = launched[k["name"]]
+
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "corridor": main_run,
@@ -2495,7 +2901,7 @@ def main() -> int:
                    "per_message": {"route_d": route_d, "routes": routes,
                                    "one_local_map": one_map},
                    "multicue_bench": multi["multicue_bench"], "multi_loop": multi["multi_loop"],
-                   "slam_app": slice10, "solvers": slice11,
+                   "slam_app": slice10, "solvers": slice11, "port_rest": slice12,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -4,12 +4,13 @@ log (``dataset_to_messages``: the world cloud, then per step /tf, /scan and
 /odom) and a dual-laser log (``dual_dataset_to_messages``: per step /tf with
 both lasers' frames, /scan_0, /scan_1 and /odom), optionally with integrated
 odometry noise and one laser blanked over a stretch of steps. One seed gives
-the same messages as the JAX package's generator.
+the same messages as the JAX package's generator. ``--world corridors``
+writes the Killian-scale corridor drive (``bench/synthetic.simulate_corridors``:
+2,871 frames, noisy odometry) in place of the random walk.
 
 Usage: python -m srrg2_laser_slam_2d_tpu_torch.apps.synthetic_scene_generator \\
-           -m laser_messages.jsonl [--gt gt.tum] [--steps 100] [--device cpu]
-
-The JAX package's Killian-scale ``--world corridors`` is not ported.
+           -m laser_messages.jsonl [--gt gt.tum] [--steps 100] \\
+           [--world random|corridors] [--device cpu]
 """
 
 from __future__ import annotations
@@ -143,18 +144,26 @@ def main(argv=None) -> None:
     ap.add_argument("--beams", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--drift", type=float, nargs=3, default=(0.0, 0.0, 0.0))
+    ap.add_argument("--world", choices=["random", "corridors"], default="random",
+                    help="'corridors': the Killian-scale three-loop corridor world")
     ap.add_argument("--odom-noise", type=float, default=None,
                     help="integrated odometry noise sigma per step [m]")
     ap.add_argument("--device", default=None,
                     help="where the scans are simulated (default: the CUDA card)")
     args = ap.parse_args(argv)
-    ds = synthetic.simulate(synthetic.SyntheticConfig(
-        steps=args.steps, num_beams=args.beams, seed=args.seed, drift=tuple(args.drift)),
-        device=args.device)
-    odom = None
-    if args.odom_noise:
-        odom = noisy_odometry(ds.robot_poses, args.odom_noise, args.odom_noise / 4,
-                              args.seed + 7)
+    if args.world == "corridors":
+        ccfg = synthetic.CorridorConfig(num_beams=args.beams, seed=args.seed)
+        ds = synthetic.simulate_corridors(ccfg, device=args.device)
+        trans_noise = args.odom_noise if args.odom_noise is not None else ccfg.odom_trans_noise
+        odom = noisy_odometry(ds.robot_poses, trans_noise, ccfg.odom_rot_noise, args.seed + 7)
+    else:
+        ds = synthetic.simulate(synthetic.SyntheticConfig(
+            steps=args.steps, num_beams=args.beams, seed=args.seed, drift=tuple(args.drift)),
+            device=args.device)
+        odom = None
+        if args.odom_noise:
+            odom = noisy_odometry(ds.robot_poses, args.odom_noise, args.odom_noise / 4,
+                                  args.seed + 7)
     logfile.write_jsonl(args.message, dataset_to_messages(ds, odom_poses=odom))
     print(f"wrote {args.message} ({len(ds.ranges)} scans)")
     if args.gt:

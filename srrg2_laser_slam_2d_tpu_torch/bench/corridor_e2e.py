@@ -20,24 +20,40 @@ gated configuration ``SPREAD_RUNS`` times, the first on the log as it is
 and each other with N(0, ``SPREAD_SIGMA``) metres added to every range, and
 reports ATE, closures and graph size per run.
 
+``--native-baseline`` adds the same-host C++ reference beside the run
+(``run_native_baseline``): ``native/baseline_slam.cpp``, single-core, built
+with ``g++`` into ``build/torch_native/`` (never under ``native/``) under a
+name that carries the host's code-generation target, run on the same log
+and scored by the same suite.
+
 Usage (the CUDA card by default; without one it raises):
   python -m srrg2_laser_slam_2d_tpu_torch.bench.corridor_e2e \
       [--chunk 1024] [--config configurations/corridor.json] \
       [--lean-config configurations/corridor_lean.json] [--out art.json] \
-      [--tum traj.tum] [--max-frames N] [--single-pass] [--spread] [--device cuda]
+      [--tum traj.tum] [--max-frames N] [--single-pass] [--spread] \
+      [--native-baseline] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import functools
+import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 DATA = "bench/data/corridor.jsonl"
 GROUND_TRUTH = "bench/data/corridor_gt.tum"
+_ROOT = Path(__file__).resolve().parent.parent.parent
+NATIVE_SOURCE = _ROOT / "native" / "baseline_slam.cpp"
+NATIVE_DIR = _ROOT / "build" / "torch_native"
+NATIVE_FLAGS = ("-O3", "-march=native", "-std=c++17")
 SPREAD_RUNS = 8
 SPREAD_SIGMA = 1e-5
 
@@ -157,6 +173,75 @@ def spread(cfg_path: str, chunk: int, device, messages: list) -> list[dict]:
     return rows
 
 
+@functools.lru_cache(maxsize=None)
+def native_exe() -> Path:
+    """Where the baseline's executable for this host lives. Its name carries
+    a hash of the compile flags, the compiler's version and the target that
+    ``-march=native`` resolves to here, so a build made on another CPU (a
+    checkout copied between machines) is never reused."""
+    def gxx(*args) -> str:
+        return subprocess.run(["g++", *args], check=True, capture_output=True, text=True,
+                              timeout=60).stdout
+
+    key = "\n".join([*NATIVE_FLAGS, gxx("--version"), gxx("-march=native", "-Q", "--help=target")])
+    return NATIVE_DIR / f"baseline_slam-{hashlib.sha1(key.encode()).hexdigest()[:16]}"
+
+
+def _build_native_baseline() -> Path:
+    """Compile ``NATIVE_SOURCE`` into ``native_exe()`` (replaced atomically)
+    where the executable is missing or older than the source."""
+    exe = native_exe()
+    if exe.exists() and exe.stat().st_mtime >= NATIVE_SOURCE.stat().st_mtime:
+        return exe
+    NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=NATIVE_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *NATIVE_FLAGS, str(NATIVE_SOURCE), "-o", tmp], check=True,
+                       capture_output=True, timeout=300)
+        os.replace(tmp, exe)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return exe
+
+
+def run_native_baseline(data: str = DATA, ground_truth: str = GROUND_TRUTH) -> dict:
+    """The single-core C++ end-to-end baseline on the same log in the same
+    process's host (``native/baseline_slam.cpp``: track, split, detect,
+    solve; no validator, closure merger or relocalizer), its trajectory
+    scored by the same suite. A reference measurement beside the run, not a
+    fallback: where ``g++`` or the run fails, ``{"error": ...}``."""
+    from ..io import tum
+    from . import suite as suite_mod
+
+    try:
+        exe = _build_native_baseline()
+        with tempfile.TemporaryDirectory() as tmp:
+            out_tum = os.path.join(tmp, "baseline_slam.tum")
+            t0 = time.perf_counter()
+            out = subprocess.run([str(exe), data, out_tum], check=True,
+                                 capture_output=True, timeout=600)
+            wall = time.perf_counter() - t0
+            res = json.loads(out.stdout.decode().strip())
+            res.pop("tum", None)       # the temporary path, gone after the call
+            est_t, est_p = tum.read_tum(out_tum)
+    except (OSError, subprocess.SubprocessError, ValueError) as e:
+        return {"error": repr(e)[:300]}
+    bench = suite_mod.BenchmarkSuite()
+    bench.set_ground_truth(*tum.read_tum(ground_truth))
+    for t, p in zip(est_t, est_p):
+        bench.set_pose_estimate(p, t)
+    stats = bench.compute()
+    res["process_wall_s"] = wall
+    res["ate_rmse_translation_m"] = float(stats["rmse_translation"])
+    res["gate_verdict"] = ("REGRESSION" if bench.is_regression(suite_mod.CORRIDOR_THRESHOLDS,
+                                                                stats) else "PASS")
+    res["note"] = ("single-core C++ full pipeline (track, split, detect, solve); no "
+                   "validator, closure merger or relocalizer")
+    return res
+
+
 def closures_accepted(summary: dict) -> bool:
     return summary["graph_factors"] > summary["graph_variables"] - 1
 
@@ -184,6 +269,8 @@ def main() -> int:
     ap.add_argument("--single-pass", action="store_true", help="cold pass only")
     ap.add_argument("--spread", action="store_true",
                     help="run the ATE spread under range noise instead of the gate")
+    ap.add_argument("--native-baseline", action="store_true",
+                    help="also build and run the C++ baseline on the same log")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the "
                          "plain PyTorch path)")
@@ -203,6 +290,9 @@ def main() -> int:
         "mode": f"chunked[{args.chunk}]",
         "gate": "corridor",
     }
+    if args.native_baseline:
+        artifact["cpp_e2e_baseline"] = run_native_baseline()
+        print("cpp:", json.dumps(artifact["cpp_e2e_baseline"]), flush=True)
     msgs = load_messages()
     if args.spread:
         artifact["spread"] = spread(args.config, args.chunk, device, msgs)

@@ -1,6 +1,8 @@
 """Deterministic synthetic scans with exact ground truth. Counterpart of
 ``srrg2_laser_slam_2d_tpu/bench/synthetic.py`` (``SyntheticConfig``,
-``SyntheticDataset``, ``make_scene``, ``simulate``, ``to_carmen``).
+``SyntheticDataset``, ``make_scene``, ``simulate``, ``to_carmen``, and the
+corridor world: ``CorridorConfig``, ``corridor_geometry``,
+``raycast_ranges``, ``corridor_trajectory``, ``simulate_corridors``).
 
 World: a circle (r = 3.5, 2048 points) plus an L-corner (1024 points) at
 pose (2, 0, pi/4). A polar laser scans it from a seeded random-walk
@@ -128,6 +130,262 @@ def to_carmen(ds: SyntheticDataset, path: str) -> None:
                 f"{op[0]:.6f} {op[1]:.6f} {op[2]:.6f} "
                 f"0 0 0 0 0 {ts:.4f} synth {ts:.4f}\n"
             )
+
+
+
+# ---------------------------------------------------------------------------
+# Killian-scale corridor world
+# ---------------------------------------------------------------------------
+# The stand-in for the MIT Killian Court log at its structural scale: a
+# corridor network with three nested rectangular loops, thousands of frames,
+# in-place corner turns, noisy odometry and walls textured by aperiodic
+# alcoves (a straight untextured corridor is longitudinally unobservable to
+# ICP). The world and the drive are numpy in float64, as in the JAX package,
+# so one seed gives the same dataset in both.
+
+RAYCAST_BLOCK = 16      # poses a block of the batched ray cast on a CUDA device
+
+
+@dataclass(frozen=True)
+class CorridorConfig:
+    num_beams: int = 721
+    angle_min: float = -np.pi / 2     # SICK-like 180 deg field of view
+    angle_max: float = np.pi / 2
+    range_min: float = 0.1
+    range_max: float = 20.0
+    # world layout (metres)
+    width: float = 56.0               # outer rectangle x extent
+    height: float = 36.0              # outer rectangle y extent
+    half_width: float = 1.0           # corridor half width
+    wall_spacing: float = 0.05        # wall point sampling
+    alcove_depth: float = 0.18        # texture (door frames)
+    alcove_period: float = 2.5
+    alcove_len: float = 0.4
+    # drive
+    step: float = 0.15                # m per frame along corridors
+    turn_step: float = 0.12           # rad per frame for in-place turns
+    # noise
+    range_noise: float = 0.01         # per-beam range sigma [m]
+    odom_trans_noise: float = 0.008   # per-step odometry sigma [m]
+    odom_rot_noise: float = 0.0015    # per-step odometry sigma [rad]
+    seed: int = 0
+
+
+def corridor_centerlines(cfg: CorridorConfig) -> list:
+    """Corridor centreline segments: the outer rectangle plus one horizontal
+    and one vertical crossing, three independent large loops."""
+    w, h = cfg.width, cfg.height
+    mid_y, mid_x = h / 2, w / 2
+    segs = [
+        ((0.0, 0.0), (w, 0.0)),          # bottom
+        ((w, 0.0), (w, h)),              # right
+        ((w, h), (0.0, h)),              # top
+        ((0.0, h), (0.0, 0.0)),          # left
+        ((0.0, mid_y), (w, mid_y)),      # middle horizontal
+        ((mid_x, 0.0), (mid_x, mid_y)),  # lower-middle vertical
+    ]
+    return [(np.asarray(a, np.float64), np.asarray(b, np.float64)) for a, b in segs]
+
+
+def _seg_distance(p: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance of points [N, 2] to segment ab."""
+    d = b - a
+    L2 = float(d @ d)
+    t = np.clip(((p - a) @ d) / max(L2, 1e-12), 0.0, 1.0)
+    proj = a + t[:, None] * d
+    return np.linalg.norm(p - proj, axis=1)
+
+
+def corridor_geometry(cfg: CorridorConfig, device=None):
+    """The corridor walls: (points Cloud on ``device``, seg_a [S, 2],
+    seg_b [S, 2] numpy).
+
+    Walls are densely sampled polylines with inward normals, textured by
+    alcoves of random spacing, length and depth (a periodic texture would
+    alias a drifted revisit onto a shifted match), with openings carved where
+    corridors cross. Consecutive kept samples of one wall are the ray-cast
+    targets, so every beam returns as a real rangefinder's does."""
+    segs = corridor_centerlines(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    pts, nrms, owner, chain = [], [], [], []
+    chain_id = 0
+    for si, (a, b) in enumerate(segs):
+        d = b - a
+        L = float(np.linalg.norm(d))
+        u = d / L
+        n = np.array([-u[1], u[0]])
+        s = np.arange(0.0, L, cfg.wall_spacing)
+        for side in (1.0, -1.0):
+            off = np.full_like(s, cfg.half_width)
+            pos = rng.uniform(0.5, cfg.alcove_period)
+            while pos < L - cfg.alcove_len:
+                ln = rng.uniform(0.6, 1.6) * cfg.alcove_len
+                depth = rng.uniform(0.7, 1.5) * cfg.alcove_depth
+                off = np.where((s >= pos) & (s < pos + ln), cfg.half_width + depth, off)
+                pos += ln + rng.uniform(0.5, 1.6) * cfg.alcove_period
+            p = a[None, :] + s[:, None] * u[None, :] + (side * off)[:, None] * n[None, :]
+            pts.append(p)
+            nrms.append(np.tile(-side * n, (len(s), 1)))
+            owner.append(np.full(len(s), si))
+            chain.append(np.full(len(s), chain_id))
+            chain_id += 1
+    pts, nrms = np.concatenate(pts), np.concatenate(nrms)
+    owner, chain = np.concatenate(owner), np.concatenate(chain)
+    # junction openings: drop the wall points that lie inside ANOTHER
+    # corridor (closer to its centreline than the corridor half width)
+    keep = np.ones(len(pts), bool)
+    for si, (a, b) in enumerate(segs):
+        inside = _seg_distance(pts, a, b) < cfg.half_width - 0.02
+        keep &= ~(inside & (owner != si))
+    cloud = cloud_op.from_numpy(pts[keep].astype(np.float32), nrms[keep].astype(np.float32),
+                                device=device)
+    # micro-segments: consecutive kept samples on one wall chain, close
+    # enough to be a wall piece or an alcove jog (carved gaps break the chain)
+    kp, kc = pts[keep], chain[keep]
+    same = (kc[1:] == kc[:-1]) & (np.linalg.norm(kp[1:] - kp[:-1], axis=1)
+                                  < 6.0 * cfg.wall_spacing)
+    return cloud, kp[:-1][same].astype(np.float32), kp[1:][same].astype(np.float32)
+
+
+def corridor_world(cfg: CorridorConfig, device=None) -> Cloud:
+    return corridor_geometry(cfg, device)[0]
+
+
+def raycast_ranges(proj, poses: np.ndarray, seg_a: np.ndarray, seg_b: np.ndarray,
+                   device=None) -> np.ndarray:
+    """Per-beam ray casting against wall segments: ranges [T, cols] (0 where
+    a beam hits nothing within ``range_max``).
+
+    For each pose and beam direction d: the nearest positive intersection
+    with any segment (the cross-product parameterization), over
+    [beams, segments] a pose. On the CPU this is the JAX package's numpy
+    loop, pose by pose; on a CUDA device the same float32 arithmetic batched
+    over blocks of ``RAYCAST_BLOCK`` poses, so the [block, beams, segments]
+    intermediates stay some hundred MB."""
+    device = resolve_device(device)
+    poses = np.asarray(poses, np.float32)
+    angles = projector_op.beam_angles(proj).numpy()
+    if device.type != "cpu":
+        return _raycast_torch(proj, poses, seg_a, seg_b, angles, device)
+    a = np.asarray(seg_a, np.float32)
+    e = np.asarray(seg_b, np.float32) - a
+    out = np.zeros((len(poses), proj.cols), np.float32)
+    for k, pose in enumerate(poses):
+        o, th = pose[:2], pose[2]
+        d = np.stack([np.cos(th + angles), np.sin(th + angles)], axis=-1)
+        ao = a - o                                             # [S, 2]
+        dxe = d[:, None, 0] * e[None, :, 1] - d[:, None, 1] * e[None, :, 0]
+        aoxe = ao[None, :, 0] * e[None, :, 1] - ao[None, :, 1] * e[None, :, 0]
+        aoxd = ao[None, :, 0] * d[:, None, 1] - ao[None, :, 1] * d[:, None, 0]
+        denom = np.where(np.abs(dxe) > 1e-12, dxe, 1e-12)
+        t = aoxe / denom
+        u = aoxd / denom
+        ok = (np.abs(dxe) > 1e-12) & (t > proj.range_min) & (u >= 0.0) & (u <= 1.0)
+        t = np.where(ok, t, np.inf)
+        r = np.min(t, axis=1)
+        out[k] = np.where(np.isfinite(r) & (r <= proj.range_max), r, 0.0)
+    return out
+
+
+def _raycast_torch(proj, poses: np.ndarray, seg_a, seg_b, angles: np.ndarray,
+                   device) -> np.ndarray:
+    a = torch.as_tensor(np.asarray(seg_a, np.float32), device=device)          # [S, 2]
+    e = torch.as_tensor(np.asarray(seg_b, np.float32), device=device) - a
+    ang = torch.as_tensor(angles, device=device)                               # [B]
+    P = torch.as_tensor(poses, device=device)
+    out = torch.empty(len(poses), proj.cols, dtype=torch.float32, device=device)
+    ex, ey = e[None, None, :, 0], e[None, None, :, 1]                         # [1, 1, S]
+    for lo in range(0, len(poses), RAYCAST_BLOCK):
+        blk = P[lo:lo + RAYCAST_BLOCK]
+        th = blk[:, 2:3] + ang[None, :]                                        # [b, B]
+        dx, dy = torch.cos(th)[..., None], torch.sin(th)[..., None]            # [b, B, 1]
+        ao = a[None] - blk[:, None, :2]                                        # [b, S, 2]
+        aox, aoy = ao[:, None, :, 0], ao[:, None, :, 1]                        # [b, 1, S]
+        dxe = dx * ey - dy * ex
+        aoxe = aox * ey - aoy * ex
+        aoxd = aox * dy - aoy * dx
+        live = dxe.abs() > 1e-12
+        denom = torch.where(live, dxe, torch.full_like(dxe, 1e-12))
+        t = aoxe / denom
+        u = aoxd / denom
+        ok = live & (t > proj.range_min) & (u >= 0.0) & (u <= 1.0)
+        r = torch.where(ok, t, torch.full_like(t, float("inf"))).amin(dim=-1)
+        out[lo:lo + RAYCAST_BLOCK] = torch.where(torch.isfinite(r) & (r <= proj.range_max),
+                                                 r, torch.zeros_like(r))
+    return out.cpu().numpy()
+
+
+def corridor_waypoints(cfg: CorridorConfig) -> list:
+    """Drive plan: three large loops, each returning over corridor already
+    mapped (the loop-closure opportunities), some 450 m in all."""
+    w, h = cfg.width, cfg.height
+    my, mx = h / 2, w / 2
+    return [
+        (2.0, 0.0), (w - 2.0, 0.0), (w, 2.0), (w, h - 2.0), (w - 2.0, h),
+        (2.0, h), (0.0, h - 2.0), (0.0, 2.0), (2.0, 0.0),          # loop 1: outer
+        (mx - 2.0, 0.0), (mx, 2.0), (mx, my - 2.0), (mx - 2.0, my),
+        (2.0, my), (0.0, my - 2.0), (0.0, 2.0), (2.0, 0.0),        # loop 2: lower-left
+        (w - 2.0, 0.0), (w, 2.0), (w, my - 2.0), (w - 2.0, my),
+        (mx + 2.0, my), (mx, my - 2.0), (mx, 2.0), (mx - 2.0, 0.0),
+        (2.0, 0.0),                                                 # loop 3: lower-right
+    ]
+
+
+def corridor_trajectory(cfg: CorridorConfig) -> np.ndarray:
+    """Ground-truth robot poses: straight legs at ``cfg.step`` with in-place
+    corner turns."""
+    wps = [np.asarray(p, np.float64) for p in corridor_waypoints(cfg)]
+    poses = []
+    heading = None
+    pos = wps[0]
+    for nxt in wps[1:]:
+        d = nxt - pos
+        L = float(np.linalg.norm(d))
+        if L < 1e-9:
+            continue
+        tgt = float(np.arctan2(d[1], d[0]))
+        if heading is None:
+            heading = tgt
+        dth = np.arctan2(np.sin(tgt - heading), np.cos(tgt - heading))
+        n_turn = int(np.ceil(abs(dth) / cfg.turn_step))
+        for _ in range(n_turn):
+            heading = heading + dth / max(n_turn, 1)
+            poses.append([pos[0], pos[1], heading])
+        heading = tgt
+        n_fwd = int(np.floor(L / cfg.step))
+        u = d / L
+        for k in range(1, n_fwd + 1):
+            p = pos + u * (k * cfg.step)
+            poses.append([p[0], p[1], heading])
+        pos = pos + u * (n_fwd * cfg.step)
+    out = np.asarray(poses, np.float64)
+    out[:, 2] = np.arctan2(np.sin(out[:, 2]), np.cos(out[:, 2]))
+    return out.astype(np.float32)
+
+
+def simulate_corridors(cfg: CorridorConfig = CorridorConfig(), poses: np.ndarray | None = None,
+                       device=None) -> SyntheticDataset:
+    """The whole corridor dataset: world, ground-truth drive and per-beam
+    ray-cast scans with range noise (the ray cast on ``device``, the noise
+    drawn on the host after it, as in the JAX package). ``poses``
+    overrides the trajectory (tests take a slice)."""
+    device = resolve_device(device)
+    proj = projector_op.PolarProjection.make(
+        cols=cfg.num_beams, angle_min=cfg.angle_min, angle_max=cfg.angle_max,
+        range_min=cfg.range_min, range_max=cfg.range_max)
+    scene, seg_a, seg_b = corridor_geometry(cfg, device)
+    gt = corridor_trajectory(cfg) if poses is None else np.asarray(poses, np.float32)
+    rng = np.random.default_rng(cfg.seed + 1)
+    ranges = raycast_ranges(proj, gt, seg_a, seg_b, device)
+    hit = ranges > 0
+    ranges = np.where(hit, ranges + rng.normal(scale=cfg.range_noise, size=ranges.shape),
+                      ranges).astype(np.float32)
+    synth_cfg = SyntheticConfig(
+        num_beams=cfg.num_beams, angle_min=cfg.angle_min, angle_max=cfg.angle_max,
+        range_min=cfg.range_min, range_max=cfg.range_max, steps=len(gt) - 1, seed=cfg.seed,
+        sensor_in_robot=(0.0, 0.0, 0.0))
+    return SyntheticDataset(config=synth_cfg, scene=scene, robot_poses=gt,
+                            sensor_poses=gt.copy(), ranges=ranges, projection=proj)
 
 
 def _min_rows(xy: torch.Tensor, valid: torch.Tensor, view) -> torch.Tensor:

@@ -38,7 +38,6 @@ from .._device import resolve_device
 from ..ops import clip as clip_op
 from ..ops import icp
 from ..ops import merge as merge_op
-from ..ops.icp import AlignerConfig
 from ..ops.projector import PolarProjection
 from ..utils import cloud as cloud_op
 from ..utils import geometry
@@ -58,7 +57,7 @@ class TrackerConfig:
     merge_threshold: float = 0.2
     clip_voxelize_resolution: float = 0.0
     projection: PolarProjection = field(default_factory=default_projection)
-    aligner: AlignerConfig = field(default_factory=AlignerConfig)
+    aligner: icp.AlignerConfig = field(default_factory=icp.AlignerConfig)
     use_fused_aligner: bool = False
     banded_aligner: bool = False
     use_fused_scene_ops: bool = False

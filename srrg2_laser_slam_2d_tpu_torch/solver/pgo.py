@@ -181,7 +181,25 @@ def decayed(chi: float, chi_prev: float, epsilon: float) -> bool:
     return abs(chi_prev - chi) < epsilon * max(chi_prev, 1e-20)
 
 
-def _optimize_lm(cfg: PGOConfig, graph: PoseGraph, diag_extra, movable):
+def no_reduce(t: torch.Tensor) -> None:
+    pass
+
+
+def _linearize_summed(graph: PoseGraph, poses, chi_threshold: float, reduce):
+    """``linearize`` at ``poses``, H, b and chi then passed to ``reduce``."""
+    H, b, chi, _ = linearize(graph._replace(poses=poses), chi_threshold)
+    for t in (H, b, chi):
+        reduce(t)
+    return H, b, chi
+
+
+def _chi_summed(graph: PoseGraph, poses, reduce) -> torch.Tensor:
+    chi = graph_chi(graph, poses)
+    reduce(chi)
+    return chi
+
+
+def _optimize_lm(cfg: PGOConfig, graph: PoseGraph, diag_extra, movable, reduce):
     """Levenberg-Marquardt: lambda * diag(H) on the diagonal, a step kept
     only where chi falls, lambda divided / multiplied by
     ``lm_lambda_factor`` on accept / reject and clipped to [1e-9, 1e8]."""
@@ -191,12 +209,12 @@ def _optimize_lm(cfg: PGOConfig, graph: PoseGraph, diag_extra, movable):
     it, chi, chi_prev = 0, float("inf"), float("inf")
     chi_t = torch.tensor(chi)
     while it < cfg.max_iterations and not (it > 1 and decayed(chi, chi_prev, cfg.epsilon)):
-        H, b, chi_lin, _ = linearize(graph._replace(poses=poses), cfg.chi_threshold)
+        H, b, chi_lin = _linearize_summed(graph, poses, cfg.chi_threshold, reduce)
         H = H + torch.diag(diag_extra)
         dx = solve_spd_scaled(H + lam * torch.diag(torch.diagonal(H)), -b).reshape(v, 3)
         dx = torch.where(movable, dx, torch.zeros_like(dx))
         cand = geometry.compose(dx, poses)
-        chi_new = graph_chi(graph, cand)
+        chi_new = _chi_summed(graph, cand, reduce)
         accept = chi_new < chi_lin
         poses = torch.where(accept, cand, poses)
         lam = torch.clamp(torch.where(accept, lam / cfg.lm_lambda_factor,
@@ -207,10 +225,13 @@ def _optimize_lm(cfg: PGOConfig, graph: PoseGraph, diag_extra, movable):
     return graph._replace(poses=poses), chi_t, it
 
 
-def optimize(cfg: PGOConfig, graph: PoseGraph):
+def optimize(cfg: PGOConfig, graph: PoseGraph, reduce=no_reduce):
     """Gauss-Newton with chi-decay termination and the divergence guard, or
     Levenberg-Marquardt (``cfg.algorithm == "lm"``). Returns (graph with
-    solved poses, final chi, iterations run)."""
+    solved poses, final chi, iterations run). ``reduce`` sums H, b and each
+    chi in place: nothing in one process, over a process group when the
+    graph holds one rank's share of the edges (``parallel/dist_pgo.py``), so
+    every rank solves the same system and takes the same exit."""
     v = graph.var_capacity
     diag_extra = torch.where(
         graph.var_fixed | ~graph.var_valid,
@@ -219,17 +240,17 @@ def optimize(cfg: PGOConfig, graph: PoseGraph):
     ).repeat_interleave(3)
     movable = (graph.var_valid & ~graph.var_fixed)[:, None]
     if cfg.algorithm == "lm":
-        return _optimize_lm(cfg, graph, diag_extra, movable)
+        return _optimize_lm(cfg, graph, diag_extra, movable, reduce)
     poses = graph.poses
     it, chi, chi_prev = 0, float("inf"), float("inf")
     chi_t = torch.tensor(chi)
     while it < cfg.max_iterations and not (it > 1 and decayed(chi, chi_prev, cfg.epsilon)):
-        H, b, chi_t, _ = linearize(graph._replace(poses=poses), cfg.chi_threshold)
+        H, b, chi_t = _linearize_summed(graph, poses, cfg.chi_threshold, reduce)
         H = H + torch.diag(diag_extra)
         dx = solve_spd_scaled(H, -b).reshape(v, 3)
         dx = torch.where(movable, dx, torch.zeros_like(dx))
         cand = geometry.compose(dx, poses)
-        chi_cand = graph_chi(graph, cand)
+        chi_cand = _chi_summed(graph, cand, reduce)
         ok = torch.isfinite(chi_cand) & (chi_cand <= 1e3 * chi_t + 1e3)
         poses = torch.where(ok, cand, poses)
         chi_prev, chi = chi, float(chi_t)

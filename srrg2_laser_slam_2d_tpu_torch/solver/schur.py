@@ -1,7 +1,7 @@
 """Schur-complement partitioned Gauss-Newton for pose graphs. Counterpart
 of ``srrg2_laser_slam_2d_tpu/solver/schur.py`` (``Partitioning``,
-``partition_graph``, ``optimize_schur``; the mesh-sharded variant belongs
-to the parallel layer and is not ported).
+``partition_graph``, ``optimize_schur``, and ``optimize_schur_sharded`` over
+a ``torch.distributed`` process group).
 
 Partition the graph by index range, eliminate each partition's INTERIOR
 variables locally (dense per-partition algebra, the partitions a batch
@@ -258,14 +258,16 @@ def elimination_chunks(n_parts: int) -> int:
     return n_parts // ELIMINATION_CHUNK
 
 
-def _eliminate(Hp, bp, rows3, anchor_sep, d_i: int, d_s: int):
-    """Interior elimination, reduced-system assembly and separator solve.
-    The elimination uses backward-stable LU solves (Jacobi-scaled, finite
-    guard), not explicit inverses: chain interiors have soft modes whose
-    inverse-times-multiply error made the reduced system indefinite in the
-    reference. One LU per partition serves both right-hand sides.
+def _reduce_local(Hp, bp, rows3, d_i: int, d_s: int, chunks: int):
+    """Interior elimination of a batch of partitions and their share of the
+    reduced system. The elimination uses backward-stable LU solves
+    (Jacobi-scaled, finite guard), not explicit inverses: chain interiors
+    have soft modes whose inverse-times-multiply error made the reduced
+    system indefinite in the reference. One LU per partition serves both
+    right-hand sides; the partitions are solved in ``chunks`` batches.
 
-    Returns (dx_s [d_s], y [P, dI], G [P, dI, dL])."""
+    Returns (S [d_s + 1, d_s + 1], b [d_s + 1], y [P, dI], G [P, dI, dL]);
+    row and column d_s of S and b collect the pad rows (dropped)."""
     H_ii = Hp[:, :d_i, :d_i]
     H_il = Hp[:, :d_i, d_i:]
     H_ll_p = Hp[:, d_i:, d_i:]
@@ -273,7 +275,6 @@ def _eliminate(Hp, bp, rows3, anchor_sep, d_i: int, d_s: int):
     b_l_p = bp[:, d_i:]
     d_l = H_il.shape[-1]
     rhs = torch.cat([H_il, b_i[..., None]], dim=-1)
-    chunks = elimination_chunks(Hp.shape[0])
     X = torch.cat([pgo_mod.solve_spd_scaled_batched(h, r)
                    for h, r in zip(H_ii.chunk(chunks), rhs.chunk(chunks))])
     G, y = X[..., :d_l], X[..., d_l]
@@ -284,10 +285,9 @@ def _eliminate(Hp, bp, rows3, anchor_sep, d_i: int, d_s: int):
     S_red = torch.zeros(n * n, dtype=torch.float32, device=Hp.device)
     S_red.index_add_(0, (rows3[:, :, None] * n + rows3[:, None, :]).reshape(-1),
                      S_loc.reshape(-1))
-    S_red = S_red.reshape(n, n)[:d_s, :d_s] + torch.diag(anchor_sep.repeat_interleave(3))
     b_red = torch.zeros(n, dtype=torch.float32, device=Hp.device)
     b_red.index_add_(0, rows3.reshape(-1), b_loc.reshape(-1))
-    return _solve_separator(S_red, -b_red[:d_s]), y, G
+    return S_red.reshape(n, n), b_red, y, G
 
 
 def _solve_separator(S_red: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -313,36 +313,58 @@ def _solve_separator(S_red: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
-def optimize_schur(cfg: PGOConfig, graph: PoseGraph, part: Partitioning,
-                   stats: list | None = None):
-    """GN loop with a Schur elimination per iteration and the divergence
-    guard of ``pgo.optimize``. Same contract: (graph with solved poses, chi,
-    iterations). ``stats``, where given, receives each iteration's chi."""
-    elimination_chunks(part.n_parts)
+def _separator_layout(cfg: PGOConfig, graph: PoseGraph, part: Partitioning):
+    """(rows3 [P, dL]: the global separator row of each local separator row,
+    pad -> d_s, dropped; anchor_sep [S]: each separator slot's diagonal
+    term, the anchor weight where fixed, invalid or pad, else the damping)."""
     v_cap = graph.var_capacity
-    P, I, S = part.n_parts, part.interior_cap, part.separator_cap
-    d_i, d_s, d_l = 3 * I, 3 * S, 3 * part.sep_local_cap
+    d_s, d_l = 3 * part.separator_cap, 3 * part.sep_local_cap
     dev = graph.poses.device
-    # [P, dL] global row of each local separator row (pad -> d_s, dropped)
     rows3 = torch.clamp(3 * part.sep_local_idx[:, :, None]
-                        + torch.arange(3, device=dev)[None, None, :], max=d_s).reshape(P, d_l)
+                        + torch.arange(3, device=dev)[None, None, :],
+                        max=d_s).reshape(part.n_parts, d_l)
     sep_g = torch.clamp(part.separator_idx, max=v_cap)
     no = torch.zeros(1, dtype=torch.bool, device=dev)
     anchored = ((part.separator_idx >= v_cap) | torch.cat([graph.var_fixed, no])[sep_g]
                 | ~torch.cat([graph.var_valid, no])[sep_g])
-    anchor_sep = torch.where(anchored, cfg.anchor_weight, cfg.damping).to(torch.float32)
+    return rows3, torch.where(anchored, cfg.anchor_weight, cfg.damping).to(torch.float32)
+
+
+def _schur_gn(cfg: PGOConfig, graph: PoseGraph, part: Partitioning, mine: slice, reduce,
+              stats: list | None = None):
+    """The GN loop of both Schur solvers over the partitions ``mine``: their
+    local systems and interior eliminations, ``reduce`` (in place: nothing
+    in one process, a sum over the group when sharded) on the separator
+    system, chi and the interior increments, then the separator solve and
+    the divergence guard of ``pgo.optimize``."""
+    elimination_chunks(part.n_parts)
+    v_cap = graph.var_capacity
+    rows3, anchor_sep = _separator_layout(cfg, graph, part)
+    rows3 = rows3[mine]
+    own = part._replace(interior_idx=part.interior_idx[mine], edge_perm=part.edge_perm[mine],
+                        edge_mask=part.edge_mask[mine], sep_local_idx=part.sep_local_idx[mine])
+    P, I, S = own.n_parts, part.interior_cap, part.separator_cap
+    d_i, d_s = 3 * I, 3 * S
+    # the reference solves its partitions in batches of 256 from 512 on
+    chunks = 1 if part.n_parts < 512 else -(-P // ELIMINATION_CHUNK)
+    dev = graph.poses.device
+    anchor_diag = torch.diag(anchor_sep.repeat_interleave(3))
     movable = (graph.var_valid & ~graph.var_fixed)[:, None]
     poses = graph.poses
     it, chi, chi_prev = 0, float("inf"), float("inf")
     chi_t = torch.tensor(chi)
     while it < cfg.max_iterations and not (it > 1 and decayed(chi, chi_prev, cfg.epsilon)):
-        Hp, bp, chi_p = _partition_systems(cfg, graph, part, poses)
+        Hp, bp, chi_p = _partition_systems(cfg, graph, own, poses)
         chi_t = chi_p.sum()
-        dx_s, y, G = _eliminate(Hp, bp, rows3, anchor_sep, d_i, d_s)
+        S_red, b_red, y, G = _reduce_local(Hp, bp, rows3, d_i, d_s, chunks)
+        for t in (S_red, b_red, chi_t):
+            reduce(t)
+        dx_s = _solve_separator(S_red[:d_s, :d_s] + anchor_diag, -b_red[:d_s])
         dx_sl = torch.cat([dx_s, dx_s.new_zeros(1)])[rows3]           # [P, dL]
         dx_i = -y - torch.einsum("pik,pk->pi", G, dx_sl)              # [P, dI]
         dx = torch.zeros(v_cap + 1, 3, dtype=torch.float32, device=dev)
-        dx.index_add_(0, part.interior_idx.reshape(-1), dx_i.reshape(P * I, 3))
+        dx.index_add_(0, own.interior_idx.reshape(-1), dx_i.reshape(P * I, 3))
+        reduce(dx)
         dx.index_add_(0, part.separator_idx, dx_s.reshape(S, 3))
         dx = torch.where(movable, dx[:v_cap], torch.zeros_like(poses))
         cand = geometry.compose(dx, poses)
@@ -356,3 +378,29 @@ def optimize_schur(cfg: PGOConfig, graph: PoseGraph, part: Partitioning,
             stats.append({"chi": chi})
         it += 1
     return graph._replace(poses=poses), chi_t, it
+
+
+def optimize_schur(cfg: PGOConfig, graph: PoseGraph, part: Partitioning,
+                   stats: list | None = None):
+    """GN loop with a Schur elimination per iteration and the divergence
+    guard of ``pgo.optimize``. Same contract: (graph with solved poses, chi,
+    iterations). ``stats``, where given, receives each iteration's chi."""
+    return _schur_gn(cfg, graph, part, slice(None), pgo_mod.no_reduce, stats)
+
+
+def optimize_schur_sharded(cfg: PGOConfig, graph: PoseGraph, part: Partitioning, group=None):
+    """Schur over a process group (counterpart of the JAX mesh-sharded
+    ``optimize_schur_sharded``): the partitions split over the ranks in
+    contiguous blocks (``n_parts`` a multiple of the group's size); each rank
+    eliminates its own partitions' interiors, the reduced separator system,
+    chi and the [V + 1, 3] interior increments are summed with
+    ``all_reduce`` (separator-sized traffic), and every rank solves the
+    separator and takes the same guarded step. The graph is replicated.
+    Returns (graph with the solved poses, chi, iterations), equal on every
+    rank."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import rank_slice
+
+    return _schur_gn(cfg, graph, part, rank_slice(part.n_parts, group),
+                     lambda t: dist.all_reduce(t, group=group))

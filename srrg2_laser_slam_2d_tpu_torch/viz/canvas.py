@@ -24,7 +24,7 @@ MARGIN = 0.04      # share of the image left blank on each side
 
 # the named colors the draw hooks use (matplotlib's values)
 _NAMED = {"black": (0, 0, 0), "red": (255, 0, 0), "green": (0, 128, 0),
-          "gray": (128, 128, 128)}
+          "gray": (128, 128, 128), "magenta": (255, 0, 255)}
 
 
 def parse_color(color: str) -> tuple[int, int, int]:
@@ -139,7 +139,7 @@ class Canvas:
         self._lines(p[:-1], p[1:], color, 1.0)
 
     # -- output --------------------------------------------------------------
-    def _render(self) -> np.ndarray:
+    def render(self) -> np.ndarray:
         """The [h, w, 3] uint8 image of everything put so far."""
         w, h = self.size
         img = np.full((h, w, 3), 255, np.uint8)
@@ -185,7 +185,7 @@ class Canvas:
         """Render and write the PNG (``<title>.png`` by default); returns
         its path."""
         out = path or f"{self.title}.png"
-        write_png(out, self._render())
+        write_png(out, self.render())
         return out
 
     def close(self) -> None:

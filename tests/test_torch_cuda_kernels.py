@@ -738,3 +738,71 @@ def test_probe_kernels_match_plain_on_card(card, room_scans):
         exp_gather.gather_probe(*exp_gather.make_inputs(1, card, 254, 16), 10, "direct", 16)
     with pytest.raises(ValueError):
         exp_gather.gather_probe(cv, ix, 10, "take2d", shift)
+
+
+def test_corridor_raycast_on_card_matches_numpy(card):
+    """The batched torch ray cast of ``bench/synthetic.raycast_ranges`` on
+    the card against the numpy loop on the host, over 48 poses of the
+    corridor drive at 721 beams: the beams that hit in both agree to 1e-3 m
+    (``cos``/``sin`` and the division round differently on the card), at
+    most 0.1 % of the beams hit in one and miss in the other (a ray grazing
+    a segment's end)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import synthetic
+
+    cfg = synthetic.CorridorConfig()
+    _, seg_a, seg_b = synthetic.corridor_geometry(cfg)
+    proj = projector_op.PolarProjection.make(cols=cfg.num_beams, angle_min=cfg.angle_min,
+                                             angle_max=cfg.angle_max, range_min=cfg.range_min,
+                                             range_max=cfg.range_max)
+    poses = synthetic.corridor_trajectory(cfg)[::60][:48]
+    on_card = synthetic.raycast_ranges(proj, poses, seg_a, seg_b, device=card)
+    on_host = synthetic.raycast_ranges(proj, poses, seg_a, seg_b, device="cpu")
+    both = (on_card > 0) & (on_host > 0)
+    assert both.mean() > 0.5
+    assert float(np.abs(on_card - on_host)[both].max()) <= 1e-3
+    assert ((on_card > 0) != (on_host > 0)).mean() <= 1e-3
+
+
+def test_prefetcher_waits_for_its_copies_on_card(card):
+    """Items staged by ``io/prefetch.DevicePrefetcher`` on its side stream,
+    read at once on the default stream: every one equals its source (the
+    consumer's stream waits on the copy's event)."""
+    from srrg2_laser_slam_2d_tpu_torch.io.prefetch import DevicePrefetcher
+
+    n = 1 << 23                                    # 32 MiB an item
+    items = [{"x": np.full(n, k, np.float32), "k": torch.full((4,), k)} for k in range(12)]
+    for k, item in enumerate(DevicePrefetcher(iter(items), depth=3, device=card)):
+        x = item["x"]
+        assert x.device.type == "cuda" and item["k"].device.type == "cuda"
+        total = (x - k).abs().sum()               # enqueued on the default stream
+        assert float(total) == 0.0 and int(item["k"][0]) == k
+
+
+def test_sharded_solvers_at_world_size_one_under_nccl(card, tmp_path):
+    """``dist_pgo.optimize_sharded`` and ``schur.optimize_schur_sharded`` in
+    a one-rank NCCL group on the card against ``pgo.optimize`` and
+    ``optimize_schur`` on the same graphs (a correctness run of the
+    collective path): poses to 1e-4 and 1e-3."""
+    import torch.distributed as dist
+
+    from srrg2_laser_slam_2d_tpu_torch.bench import pgo_bench
+    from srrg2_laser_slam_2d_tpu_torch.parallel import dist_pgo, dryrun, multihost
+    from srrg2_laser_slam_2d_tpu_torch.solver import pgo, schur
+
+    dev = multihost.init_multiprocess(0, 1, "file://" + str(tmp_path / "rdv"), device=card)
+    try:
+        assert dist.get_backend() == "nccl"
+        ring = dryrun.ring_graph(16, 32, np.random.default_rng(0), dev)
+        cfg = pgo.PGOConfig(max_iterations=10)
+        out, chi, _ = dist_pgo.optimize_sharded(cfg, dist_pgo.shard_edges(ring), None)
+        ref, chi_ref, _ = pgo.optimize(cfg, ring)
+        assert float((out.poses - ref.poses).abs().max()) <= 1e-4
+        assert abs(float(chi) - float(chi_ref)) <= 1e-3 * max(float(chi_ref), 1e-3)
+        grid = pgo_bench.make_grid_graph(16, device=dev)
+        part = schur.partition_graph(grid, n_parts=8, n_vars=256)
+        cfg = pgo.PGOConfig(max_iterations=3)
+        out, _, _ = schur.optimize_schur_sharded(cfg, grid, part)
+        ref, _, _ = schur.optimize_schur(cfg, grid, part)
+        assert float((out.poses - ref.poses).abs().max()) <= 1e-3
+    finally:
+        dist.destroy_process_group()
