@@ -169,7 +169,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      single-device solver's run-to-run spread under its default atomic
      sums printed beside), (j)
      ``parallel/scaling.main`` (one row a measurement; kernel 3 launched);
-  13. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
+  13. the reference's BOSS assemblies (``tests/data/boss/``, written for the
+     tests in its format) through ``io/boss_config.py``, every launch counter
+     set to 0 before each run and read after it: (a) ``slam_app
+     --boss-config`` with the LASER_0 document over the whole corridor with
+     ``--chunked 1024`` (``ChunkedGraphSLAM2D`` forces the frame kernel):
+     2,871 finite poses, the frame kernel launched 3 times; wall, ATE, the
+     gate's verdict and whether closures were accepted printed beside phase
+     6's run (the gate belongs to ``corridor.json``, not to this tuning, so
+     it is not asserted); (b) the MULTI document through
+     ``SlamRunner(scan_topics=...)`` over phase 9's dual drive: a
+     ``MultiCueTracker``, the extrinsics from the TF tree within 1e-6, the
+     multi-cue aligner kernel launched once a tracked frame, finite poses, a
+     graph that closes; ATE beside phase 9's preset run; (c) ``slam_app
+     --boss-config`` with the LASER_0 document per message over the first
+     100 frames of phase 10's CARMEN log: the plain ICP tracker (route C
+     under the default z-buffer), no kernel launched; frames/s printed;
+  14. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
      launches on its main path (the probes: their own probe runs), its error
      against the plain version, its time, the plain version's time, its
      bound and the time of one PyTorch call that computes the same function
@@ -179,12 +195,16 @@ The last line is ``{"ok": true, "device": {...}}``. Longer output goes to
 under ``slam_app_corridor_launches`` and ``carmen_per_message_launches`` of
 their entries, phase 11's under ``corridor_cg_launches`` and
 ``corridor_schur_launches``, phase 12's under ``track_sequence_launches``,
-``ablate_launches`` and ``scaling_launches``). Nothing of the earlier paths
-is cut. ``--only message-kernels`` / ``--only message-path`` / ``--only
-multi`` / ``--only slam-app`` / ``--only solvers`` / ``--only port-rest`` run
-the build and part 5, part 8, part 9, part 10, part 11 or part 12 (with a
-corridor run of its own) alone while developing, and print no result
-lines. ``bench/compare_csrc.py`` reuses the check functions to time
+``ablate_launches`` and ``scaling_launches``, phase 13's under
+``boss_chunked_laser0_launches`` and ``boss_multi_launches``). One earlier
+path runs at a smaller depth so that the whole stays inside its time limit:
+phase 8's routes A, B and C over the first ``MESSAGE_FRAMES`` = 300
+corridor frames. ``--only message-kernels`` / ``--only message-path`` /
+``--only multi`` / ``--only slam-app`` / ``--only solvers`` / ``--only
+port-rest`` / ``--only boss`` run the build and part 5, part 8, part 9,
+part 10, part 11, part 12 (with a corridor run of its own) or part 13 (with
+its own dual drive and CARMEN log) alone while developing, and print no
+result lines. ``bench/compare_csrc.py`` reuses the check functions to time
 every kernel call this script times against other CUDA sources.
 
 Tolerances. Kernel and plain version run the same float32 operations in
@@ -262,7 +282,7 @@ STREAM_SHORT_T = 48
 STREAM_KS = (8, 32, 128)
 FLAGGED_TOL = 1e-2
 SCENE_FRAMES = 40
-MESSAGE_FRAMES = 600
+MESSAGE_FRAMES = 300
 ONE_MAP_SCANS = 11
 
 
@@ -1779,7 +1799,8 @@ def multi_path(device) -> dict:
     bench = multicue_bench_run(device)
     loop = multi_loop_run(msgs, gt, device)
     kernel["launches"] = loop["dual"]["launches"]["multicue_align_kernel"]
-    return {"kernels": [kernel, *probes], "multicue_bench": bench, "multi_loop": loop}
+    return {"kernels": [kernel, *probes], "multicue_bench": bench, "multi_loop": loop,
+            "drive": (msgs, gt)}
 
 
 # ------------------------------------------------- the slam_app slice (phase 10)
@@ -2040,7 +2061,8 @@ def slam_app_slice(corridor: dict, device) -> dict:
     iters = check_iteration_stats(arrays, device)
     config = generated_config_check(device)
     return {"slam_app_corridor": app_run, "native_loader": native, "carmen_per_message": message,
-            "checkpoint": resume, "iteration_stats": iters, "generated_config": config}
+            "checkpoint": resume, "iteration_stats": iters, "generated_config": config,
+            "carmen_log": path}
 
 
 # ------------------------- large pose graphs, finders, idle shares (phase 11)
@@ -2754,6 +2776,132 @@ def port_rest_slice(msgs, slam_cfg, pcfg, device, corridor: dict, corridor_tum: 
     return out
 
 
+# ------------------------------------------------ BOSS assemblies (phase 13)
+
+BOSS_LASER0 = "tests/data/boss/laser0.boss.json"
+BOSS_MULTI = "tests/data/boss/multi.boss.json"
+BOSS_CARMEN_FRAMES = 100
+
+
+def boss_chunked_run(corridor: dict) -> dict:
+    """(a) The whole corridor through ``slam_app --boss-config`` with the
+    LASER_0 assembly and ``--chunked 1024`` (``ChunkedGraphSLAM2D`` forces
+    the frame kernel): 2,871 frames, the frame kernel once a chunk. The
+    corridor gate belongs to ``corridor.json``, not to this tuning, so its
+    verdict is printed beside phase 6's run, not asserted."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
+    from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
+
+    args = slam_app.parser().parse_args([
+        "--boss-config", BOSS_LASER0, "-i", corridor_e2e.DATA, "--scan-topic", "/scan",
+        "--chunked", str(CHUNK)])
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, runner = slam_app.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    stats, regression = ate_of(runner.trajectory)
+    slam = runner.slam
+    summary = {"graph_variables": slam.num_variables(), "graph_factors": slam.num_factors()}
+    out = {"frames": len(traj), "wall_s": wall, "frames_per_s": len(traj) / wall,
+           "phases": runner.timing_summary().get("phases", {}),
+           "ate_rmse_translation_m": float(stats["rmse_translation"]),
+           "gate_verdict": "REGRESSION" if regression else "PASS",
+           "closures_accepted": corridor_e2e.closures_accepted(summary), **summary,
+           "closures": slam.num_closures,
+           "phase6_wall_s": corridor.get("wall_s"),
+           "phase6_ate_rmse_translation_m": corridor.get("ate_rmse_translation_m"),
+           "phase6_gate_verdict": corridor.get("gate_verdict"),
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"BOSS LASER_0, slam_app --chunked {CHUNK}: {json.dumps(out)}")
+    assert rc == 0 and traj.shape == (2871, 3) and np.isfinite(traj).all()
+    assert launches["frame_kernel"] == -(-2871 // CHUNK), launches
+    return out
+
+
+def boss_multi_run(msgs, gt_poses, multi_loop: dict, device) -> dict:
+    """(b) The MULTI assembly over phase 9's dual drive through
+    ``SlamRunner(scan_topics=...)``, extrinsics from the TF tree: kernel 6
+    once a tracked frame, finite poses, a graph that closes; its ATE beside
+    phase 9's preset run."""
+    from srrg2_laser_slam_2d_tpu_torch.io import boss_config
+    from srrg2_laser_slam_2d_tpu_torch.io.sources import ListSource, SynchronizedSource
+    from srrg2_laser_slam_2d_tpu_torch.models.runner import SlamRunner
+
+    g = boss_config.load(BOSS_MULTI)
+    runner = SlamRunner(slam_config=boss_config.to_slam_config(g),
+                        preprocessor_config=boss_config.to_preprocessor_config(g),
+                        scan_topics=["/scan_0", "/scan_1"], sensor_frames=list(MULTI_FRAMES),
+                        base_frame="base_frame", device=device)
+    topics = ["/tf", "/odom", "/scan_0", "/scan_1"]
+    reset_launches()
+    t0 = time.perf_counter()
+    n = runner.run(SynchronizedSource(ListSource(msgs), topics, time_interval=0.1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    slam = runner.slam
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    gt_t = [m.timestamp for m in msgs if getattr(m, "topic", "") == "/scan_0"]
+    out = {"frames": n, "wall_s": wall, "frames_per_s": n / wall,
+           "tracker": type(slam.tracker).__name__, "tracked_frames": slam.tracker.steps,
+           "preprocess_s": runner.preprocess_time,
+           "phases": runner.timing_summary().get("phases", {}),
+           "ate_rmse_translation_m": ate_vs(runner, gt_t, gt_poses),
+           "graph_variables": slam.num_variables(), "graph_factors": slam.num_factors(),
+           "closures": slam.num_closures, "relocalizations": slam.relocalizations,
+           "phase9_wall_s": multi_loop.get("wall_s"),
+           "phase9_ate_rmse_translation_m": multi_loop.get("ate_rmse_translation_m"),
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(f"BOSS MULTI, SlamRunner(scan_topics=...) over the dual drive: {json.dumps(out)}")
+    assert out["tracker"] == "MultiCueTracker"
+    np.testing.assert_allclose(np.asarray(slam.cfg.cue_extrinsics), np.asarray(MULTI_EXTRINSICS),
+                               atol=1e-6)
+    assert launches["multicue_align_kernel"] == slam.tracker.steps > 0, launches
+    assert n == MULTI_STEPS + 1 and traj.shape == (n, 3) and np.isfinite(traj).all()
+    assert out["graph_factors"] > out["graph_variables"] - 1, out
+    return out
+
+
+def boss_message_run(carmen_path: str) -> dict:
+    """(c) ``slam_app --boss-config`` with the LASER_0 assembly per message
+    on phase 10's CARMEN log, its first ``BOSS_CARMEN_FRAMES`` frames: the
+    plain ICP tracker (route C with the default z-buffer), so no kernel."""
+    from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
+
+    args = slam_app.parser().parse_args([
+        "--boss-config", BOSS_LASER0, "--carmen", carmen_path,
+        "--max-frames", str(BOSS_CARMEN_FRAMES)])
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, runner = slam_app.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    traj = np.stack([p for _, p, _ in runner.trajectory])
+    slam = runner.slam
+    out = {"frames": len(traj), "wall_s": wall, "frames_per_s": len(traj) / wall,
+           "mean_frame_hz": runner.timing_summary()["mean_frame_hz"],
+           "preprocess_s": runner.preprocess_time,
+           "phases": runner.timing_summary().get("phases", {}),
+           "tracker": type(slam.tracker).__name__, "graph_variables": slam.num_variables(),
+           "graph_factors": slam.num_factors(), "launches": launches}
+    log(f"BOSS LASER_0, slam_app per message on the CARMEN log: {json.dumps(out)}")
+    assert rc == 0 and traj.shape == (BOSS_CARMEN_FRAMES, 3) and np.isfinite(traj).all()
+    assert out["tracker"] == "LaserTracker"
+    assert not any(launches.values()), launches
+    return out
+
+
+def boss_slice(corridor: dict, drive, multi_loop: dict, carmen_path: str, device) -> dict:
+    """Every part of phase 13."""
+    return {"chunked_laser0": boss_chunked_run(corridor),
+            "multi": boss_multi_run(*drive, multi_loop, device),
+            "per_message_laser0": boss_message_run(carmen_path)}
+
+
 def port_rest_corridor(msgs, device) -> tuple[dict, str]:
     """The gated corridor run for ``--only port-rest`` (phase 6's in the
     whole script) and its trajectory as a TUM file."""
@@ -2775,7 +2923,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
     ap.add_argument("--only", choices=["message-kernels", "message-path", "multi", "slam-app",
-                                       "solvers", "port-rest"],
+                                       "solvers", "port-rest", "boss"],
                     default=None,
                     help="while developing: run the build and this part alone; "
                          "prints no result lines")
@@ -2826,6 +2974,9 @@ def main() -> int:
     if args.only == "port-rest":
         port_rest_slice(msgs, slam_cfg, pcfg, device, *port_rest_corridor(msgs, device))
         return 0
+    if args.only == "boss":
+        boss_slice({}, dual_drive(device), {}, carmen_log(device), device)
+        return 0
     stream_entry = check_stream_kernel(device)
     kernels = [check_frame_kernel(msgs, slam_cfg, pcfg, device),
                check_nn_icp_kernel(slam_cfg.detector, device), stream_entry,
@@ -2857,6 +3008,9 @@ def main() -> int:
     stamp("solvers slice")
     slice12 = port_rest_slice(msgs, slam_cfg, pcfg, device, main_run, corridor_tum)
     stamp("last modules")
+    slice13 = boss_slice(main_run, multi.pop("drive"), multi["multi_loop"]["dual"],
+                         slice10["carmen_log"], device)
+    stamp("BOSS assemblies")
     # each kernel's launches on ITS main path, counted from 0 over that path
     by_route = {r["route"]: r["launches"] for r in routes}
     launches = {**main_run["launches"], **throughput["launches"],
@@ -2892,6 +3046,12 @@ def main() -> int:
         for k in kernels:
             if k["name"] in launched:
                 k[f"{part}_launches"] = launched[k["name"]]
+    # what phase 13 adds: kernel 1 through the LASER_0 assembly under
+    # --chunked, kernel 6 through the MULTI assembly
+    for part in ("chunked_laser0", "multi"):
+        for k in kernels:
+            if k["name"] in slice13[part]["launches"]:
+                k[f"boss_{part}_launches"] = slice13[part]["launches"][k["name"]]
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2902,6 +3062,7 @@ def main() -> int:
                                    "one_local_map": one_map},
                    "multicue_bench": multi["multicue_bench"], "multi_loop": multi["multi_loop"],
                    "slam_app": slice10, "solvers": slice11, "port_rest": slice12,
+                   "boss": slice13,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -6,15 +6,19 @@ Counterpart of ``srrg2_laser_slam_2d_tpu/apps/slam_app.py``.
 Usage (the CUDA card by default; without one it raises):
   python -m srrg2_laser_slam_2d_tpu_torch.apps.slam_app -c slam.json -i log.jsonl \
       [-o traj.tum] [--draw map.png] [--carmen log.clf] [--max-frames N] \
-      [--chunked N] [--device cuda|cpu]
+      [--chunked N] [--boss-config assembly.json] [--device cuda|cpu]
   python -m srrg2_laser_slam_2d_tpu_torch.apps.slam_app -j -c slam.json   # write a config
 
 Without ``-c`` (or with a file that is not there) it runs the LASER_0
 preset, which on a card tracks through the frame kernel, one launch per
 message. ``--chunked N`` runs the chunk-batched loop instead (one frame
 kernel launch per N frames; closure candidates through the NN-ICP kernel
-on the ``fused_nn`` detector backend). ``--boss-config`` is not ported and
-raises.
+on the ``fused_nn`` detector backend). ``--boss-config`` reads a
+reference-format BOSS assembly instead (``io/boss_config.py``): LASER_0
+tracks with plain projective ICP per message (the frame kernel under
+``--chunked``); a MULTI assembly aligns through the multi-cue aligner kernel
+on a card. Like the JAX app, it feeds one laser topic: a MULTI assembly needs
+``SlamRunner(scan_topics=...)``, and ``--chunked`` refuses it.
 """
 
 from __future__ import annotations
@@ -32,12 +36,15 @@ def build_runner(args, device):
     from ..utils import config as config_mod
     from ..utils import presets
 
-    if args.boss_config:
-        raise NotImplementedError(
-            "BOSS configurations (--boss-config) are not ported: the reference's "
-            "BOSS files are not in the repository")
     slam_cfg = pre_cfg = None
-    if args.config and not args.generate_config:
+    if args.boss_config:
+        # the reference's BOSS assembly, translated (io/boss_config.py)
+        from ..io import boss_config
+
+        g = boss_config.load(args.boss_config)
+        slam_cfg = boss_config.to_slam_config(g, device=device)
+        pre_cfg = boss_config.to_preprocessor_config(g)
+    elif args.config and not args.generate_config:
         try:
             mgr = config_mod.ConfigManager.read(args.config)
             slam_cfg, pre_cfg = mgr.get_by_name("slam"), mgr.get_by_name("preprocessor")
@@ -104,7 +111,8 @@ def parser() -> argparse.ArgumentParser:
                     help="config file to read (or, with -j, to write)")
     ap.add_argument("-j", "--generate-config", action="store_true",
                     help="generate a default configuration and exit")
-    ap.add_argument("--boss-config", default=None, help="not ported")
+    ap.add_argument("--boss-config", default=None,
+                    help="read a reference-format BOSS pipeline config")
     ap.add_argument("-i", "--input", default=None, help="input JSONL message log")
     ap.add_argument("--carmen", default=None, help="input CARMEN log")
     ap.add_argument("-o", "--output", default=None, help="TUM trajectory output")

@@ -269,6 +269,12 @@ def track_step_multi(cfg: TrackerConfig, state: TrackerState, measurements: Clou
     sensor-in-robot poses; the aligner estimate maps prev-robot ->
     curr-robot, so X_new = X_old estimate^-1."""
     n_cues = extrinsics.shape[0]
+    if measurements.xy.dim() != 3:
+        # one cloud without a cue axis (a MULTI assembly fed one laser topic,
+        # as slam_app feeds it): the JAX package's per-cue projection fails
+        # on it with this error, on either route
+        raise IndexError(f"multi-cue tracking takes the cues' clouds stacked [C, N, 2]; "
+                         f"got {tuple(measurements.xy.shape)}")
     moving, T0 = multi_step_inputs(cfg, state, extrinsics, odom, odom_valid)
     if cfg.use_fused_aligner:
         from ..ops.multicue_align_kernel import fused_projective_align_multi

@@ -112,12 +112,14 @@ class HostShardedSceneStore:
     """Local-map scenes sharded across processes: map ``m`` lives on process
     ``m % num_processes`` only. ``get`` broadcasts a map's scene from its
     owner to every process when the SLAM layer needs it (loop detection
-    against remote maps)."""
+    against remote maps). ``device`` is resolved as ``init_multiprocess``
+    resolves it: the CUDA card by default; without one it raises unless
+    given ``"cpu"``."""
 
-    def __init__(self, process_id: int, num_processes: int, device="cpu", group=None):
+    def __init__(self, process_id: int, num_processes: int, device=None, group=None):
         self.pid = process_id
         self.n = num_processes
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.group = group
         self._scenes: dict[int, tuple] = {}
 

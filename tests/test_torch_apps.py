@@ -5,6 +5,7 @@ refuses. The log comes from the JAX package's ``bench/synthetic.simulate``
 (numpy arrays from a seed), written as JSONL by the port's own writer."""
 
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from srrg2_laser_slam_2d_tpu_torch.models.tracker import LaserTracker
 from srrg2_laser_slam_2d_tpu_torch.utils import config as tconfig
 from srrg2_laser_slam_2d_tpu_torch.utils import presets as tpresets
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 @pytest.fixture(scope="module")
 def log(tmp_path_factory):
@@ -93,15 +95,21 @@ def test_generic_bench_app_chunked_and_max_frames(log):
 
 
 def test_unported_options_raise(log):
-    """What the port still refuses: ``slam_app --boss-config`` (the BOSS files
-    are not in the repository) and ``generic_bench_app --checkpoint`` with
+    """What the port still refuses: ``generic_bench_app --checkpoint`` with
     the chunked loop (checkpoints hold the per-message loop's state, as in
-    the JAX package). Resuming a ``SlamRunner`` from a checkpoint is ported."""
+    the JAX package). ``slam_app --boss-config`` is ported: the LASER_0
+    document runs the LASER_0 assembly (``tests/test_torch_boss_config.py``
+    holds it to the JAX app). Resuming a ``SlamRunner`` from a checkpoint is
+    ported."""
     from srrg2_laser_slam_2d_tpu_torch.apps import slam_app
 
     d, _ = log
-    with pytest.raises(NotImplementedError, match="BOSS"):
-        slam_app.main(["--boss-config", "b.json", "-i", str(d / "log.jsonl"), "--device", "cpu"])
+    boss = str(ROOT / "tests" / "data" / "boss" / "laser0.boss.json")
+    rc, runner = slam_app.run(slam_app.parser().parse_args(
+        ["--boss-config", boss, "-i", str(d / "log.jsonl"), "--max-frames", "3",
+         "--device", "cpu"]))
+    assert rc == 0 and len(runner.trajectory) == 3
+    assert runner.slam_config == tpresets.laser0_slam(device="cpu")
     assert app.main(["-i", str(d / "log.jsonl"), "--checkpoint", str(d / "c.npz"),
                      "--chunked", "16", "--device", "cpu"]) == -1
     assert not (d / "c.npz").exists()

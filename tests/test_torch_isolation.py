@@ -244,6 +244,7 @@ SLAM_APP_MODULES = (
     "utils/checkpoint.py", "viz/__init__.py", "viz/canvas.py", "utils/config.py",
     "utils/presets.py", "utils/geometry.py", "models/preprocessor.py", "models/runner.py",
     "models/slam.py", "models/chunked_slam.py", "models/fast_tracker.py", "bench/synthetic.py",
+    "io/boss_config.py",
 )
 
 

@@ -104,6 +104,19 @@ def test_init_multiprocess_refuses_nccl_on_the_cpu(tmp_path):
                                     device="cpu")
 
 
+def test_scene_store_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.HostShardedSceneStore(0, 2)
+    store = multihost.HostShardedSceneStore(0, 2, "cpu")
+    assert store.device == torch.device("cpu")
+    store.put(0, (np.zeros((4, 2), np.float32),))
+    store.put(1, (np.ones((4, 2), np.float32),))
+    assert store.local_ids() == [0] and store.owner(1) == 1
+
+
 def test_spawn_ranks_reports_a_failing_rank():
     with pytest.raises(RuntimeError, match="rank 1 failed"):
         multihost.spawn_ranks(2, _fail_on_rank_one, device="cpu", timeout=120)

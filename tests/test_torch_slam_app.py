@@ -18,6 +18,7 @@ and appended in the other (observed 6 of 513 points up to 0.017 m apart).
 """
 
 import json
+import os
 import struct
 import zlib
 
@@ -117,8 +118,10 @@ def test_chunked_slam_app_and_what_it_refuses(log_and_gt, tmp_path, monkeypatch)
     assert rc == 0 and type(runner).__name__ == "ChunkedSlamRunner"
     t, p = tum.read_tum(out)
     assert len(t) == 16 and np.isfinite(p).all()
-    with pytest.raises(NotImplementedError, match="BOSS"):
-        slam_app.main(["--boss-config", "x.json", "-i", log, "--device", "cpu"])
+    # the chunked loop is single-cue: it refuses a MULTI assembly, as the JAX app does
+    multi = os.path.join(os.path.dirname(__file__), "data", "boss", "multi.boss.json")
+    with pytest.raises(ValueError, match="single-cue"):
+        slam_app.main(["--boss-config", multi, "-i", log, "--chunked", "8", "--device", "cpu"])
     assert slam_app.main(["-c", "/nonexistent.json", "--device", "cpu"]) == -1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
