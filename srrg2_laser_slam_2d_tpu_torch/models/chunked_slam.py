@@ -26,6 +26,7 @@ import torch
 from .._device import resolve_device
 from ..ops import nn_icp_kernel
 from ..ops.frame_kernel import track_frames_grid
+from ..utils import profiling
 from ..utils.cloud import Cloud
 from . import fast_tracker as fast_mod
 from . import loop_closure as lc
@@ -129,7 +130,6 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         """Process a [T, ...] cloud stack on the SLAM device (+ [T, 3]
         odometry). Frames from ``n_frames`` on are padding. Returns the
         chunk's [n, 3] world-frame trajectory."""
-        t0 = time.perf_counter()
         spec = self.tracker.spec
         dev = self.device
         T = clouds.xy.shape[0]
@@ -139,103 +139,104 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
             odoms = np.asarray(odoms, np.float32)
             odom_valid = (np.arange(T) < n).astype(np.float32)
 
-        first = self.current_map < 0
-        if first:
-            # frame 0 seeds local map 0
-            self.current_map = self._add_variable(np.zeros(3, np.float32), fixed=True)
-            self.tracker.state = fast_mod.seed(
-                spec, clouds.map(lambda x: x[0]), self.tracker.sensor_in_robot,
-                odom=None if odoms is None else odoms[0])
-            self.world_trajectory.append(np.zeros(3, np.float32))
-            # the chunk's grid drops frame 0 and pads one dead frame
-            clouds_g = clouds.map(lambda x: torch.cat([x[1:], torch.zeros_like(x[:1])]))
-            odoms_g = None if odoms is None else np.concatenate([odoms[1:], odoms[-1:]])
-            ov_g = None if odoms is None else np.concatenate(
-                [odom_valid[1:], np.zeros(1, np.float32)])
-            n_g = n - 1
-        else:
-            clouds_g, odoms_g, ov_g, n_g = clouds, odoms, odom_valid, n
-        measC = fast_mod.pack_measurement_canvas_batch(
-            spec, clouds_g,
-            None if odoms_g is None else torch.from_numpy(odoms_g).to(dev),
-            None if ov_g is None else torch.from_numpy(ov_g).to(dev))
-        st = self.tracker.state
-        cacheT, pose, payloads = track_frames_grid(spec, st.cacheT, st.pose, measC)
-        self.tracker.state = st._replace(cacheT=cacheT, pose=pose)
+        with self._span("track"):
+            first = self.current_map < 0
+            if first:
+                # frame 0 seeds local map 0
+                self.current_map = self._add_variable(np.zeros(3, np.float32), fixed=True)
+                self.tracker.state = fast_mod.seed(
+                    spec, clouds.map(lambda x: x[0]), self.tracker.sensor_in_robot,
+                    odom=None if odoms is None else odoms[0])
+                self.world_trajectory.append(np.zeros(3, np.float32))
+                # the chunk's grid drops frame 0 and pads one dead frame
+                clouds_g = clouds.map(lambda x: torch.cat([x[1:], torch.zeros_like(x[:1])]))
+                odoms_g = None if odoms is None else np.concatenate([odoms[1:], odoms[-1:]])
+                ov_g = None if odoms is None else np.concatenate(
+                    [odom_valid[1:], np.zeros(1, np.float32)])
+                n_g = n - 1
+            else:
+                clouds_g, odoms_g, ov_g, n_g = clouds, odoms, odom_valid, n
+            measC = fast_mod.pack_measurement_canvas_batch(
+                spec, clouds_g,
+                None if odoms_g is None else torch.from_numpy(odoms_g).to(dev),
+                None if ov_g is None else torch.from_numpy(ov_g).to(dev))
+            st = self.tracker.state
+            cacheT, pose, payloads = track_frames_grid(spec, st.cacheT, st.pose, measC)
+            self.tracker.state = st._replace(cacheT=cacheT, pose=pose)
 
-        # ---- the chunk's one read of the kernel's stats ---------------------
-        stats = payloads[:, 6, :12].cpu().numpy()
-        self._fetch_poses()
-        t0 = self._phase("track", t0)
+            # ---- the chunk's one read of the kernel's stats -----------------
+            stats = payloads[:, 6, :12].cpu().numpy()
+            self._fetch_poses()
         if n_g <= 0:
             return np.zeros((0, 3), np.float32)
-        stats = stats[:n_g]
-        split_f = stats[:, 7] > 0.5
-        X = stats[:, 8:11]
-        counts = stats[:, 11]
+        with self._span("materialize"):
+            stats = stats[:n_g]
+            split_f = stats[:, 7] > 0.5
+            X = stats[:, 8:11]
+            counts = stats[:, 11]
 
-        # ---- graph reconstruction + trajectory (host) -----------------------
-        cfg = self.cfg
-        traj_map = np.empty(n_g, np.int64)
-        seg_bounds: list[tuple[int, int, int]] = []   # (map, start, end) payloads
-        cur = self.current_map
-        start = 0    # payload segment start (a split frame seeds the new map)
-        tstart = 0   # trajectory start (a split frame's X is in the old map)
-        new_maps: list[int] = []
-        for s in np.where(split_f)[0]:
-            traj_map[tstart: s + 1] = cur
-            ril = X[s]
-            new = self._add_variable(lc.compose_np(self._poses_host[cur], ril))
-            self._add_edge(cur, new, ril, cfg.odom_edge_info)
-            seg_bounds.append((cur, start, int(s)))
-            new_maps.append(new)
-            cur, start, tstart = new, int(s), int(s) + 1
-        traj_map[tstart:] = cur
-        seg_bounds.append((cur, start, n_g))
-        self.current_map = cur
-        self._X_host = X[-1].copy() if not split_f[-1] else np.zeros(3, np.float32)
+            # ---- graph reconstruction + trajectory (host) -------------------
+            cfg = self.cfg
+            traj_map = np.empty(n_g, np.int64)
+            seg_bounds: list[tuple[int, int, int]] = []   # (map, start, end) payloads
+            cur = self.current_map
+            start = 0    # payload segment start (a split frame seeds the new map)
+            tstart = 0   # trajectory start (a split frame's X is in the old map)
+            new_maps: list[int] = []
+            for s in np.where(split_f)[0]:
+                traj_map[tstart: s + 1] = cur
+                ril = X[s]
+                new = self._add_variable(lc.compose_np(self._poses_host[cur], ril))
+                self._add_edge(cur, new, ril, cfg.odom_edge_info)
+                seg_bounds.append((cur, start, int(s)))
+                new_maps.append(new)
+                cur, start, tstart = new, int(s), int(s) + 1
+            traj_map[tstart:] = cur
+            seg_bounds.append((cur, start, n_g))
+            self.current_map = cur
+            self._X_host = X[-1].copy() if not split_f[-1] else np.zeros(3, np.float32)
 
-        P = self._poses_host[traj_map]
-        c_, s_ = np.cos(P[:, 2]), np.sin(P[:, 2])
-        world = np.stack([P[:, 0] + c_ * X[:, 0] - s_ * X[:, 1],
-                          P[:, 1] + s_ * X[:, 0] + c_ * X[:, 1],
-                          P[:, 2] + X[:, 2]], axis=1).astype(np.float32)
-        self.world_trajectory.extend(world)
+            P = self._poses_host[traj_map]
+            c_, s_ = np.cos(P[:, 2]), np.sin(P[:, 2])
+            world = np.stack([P[:, 0] + c_ * X[:, 0] - s_ * X[:, 1],
+                              P[:, 1] + s_ * X[:, 0] + c_ * X[:, 1],
+                              P[:, 2] + X[:, 2]], axis=1).astype(np.float32)
+            self.world_trajectory.extend(world)
 
-        # ---- scene materialization ------------------------------------------
-        # the first segment continues the entering map's scene
-        m0, a0, b0 = seg_bounds[0]
-        scene0 = self.tracker.state.scene
-        if b0 > a0:
-            scene0 = fast_mod.materialize(spec, scene0, payloads[:b0],
-                                          float(counts[b0 - 1]))
-            self._scene_counts[m0] = int(counts[b0 - 1])
-        fresh = seg_bounds[1:]
-        self._pool_write([m0], scene0.map(lambda x: x[None]))
-        if fresh:
-            # fresh maps: one batched materialize from empty scenes, the
-            # segments padded to the longest with dead frames
-            L = max(e - s for _, s, e in fresh)
-            seg = torch.zeros((len(fresh), L) + payloads.shape[1:], device=dev)
-            for k, (m, s, e) in enumerate(fresh):
-                seg[k, : e - s] = payloads[s:e]
-                self._scene_counts[m] = int(counts[e - 1])
-            cap = spec.scene_capacity
-            empty = Cloud(torch.zeros(len(fresh), cap, 2, device=dev),
-                          torch.zeros(len(fresh), cap, 2, device=dev),
-                          torch.zeros(len(fresh), cap, dtype=torch.bool, device=dev))
-            scenes_k = fast_mod.materialize(
-                spec, empty, seg, torch.as_tensor(counts[[e - 1 for _, _, e in fresh]]))
-            self._pool_write([m for m, _, _ in fresh], scenes_k)
-            self.tracker.state = self.tracker.state._replace(
-                scene=scenes_k.map(lambda x: x[-1]))
-        else:
-            self.tracker.state = self.tracker.state._replace(scene=scene0)
-        t0 = self._phase("materialize", t0)
+            # ---- scene materialization --------------------------------------
+            # the first segment continues the entering map's scene
+            m0, a0, b0 = seg_bounds[0]
+            scene0 = self.tracker.state.scene
+            if b0 > a0:
+                scene0 = fast_mod.materialize(spec, scene0, payloads[:b0],
+                                              float(counts[b0 - 1]))
+                self._scene_counts[m0] = int(counts[b0 - 1])
+            fresh = seg_bounds[1:]
+            self._pool_write([m0], scene0.map(lambda x: x[None]))
+            if fresh:
+                # fresh maps: one batched materialize from empty scenes, the
+                # segments padded to the longest with dead frames
+                L = max(e - s for _, s, e in fresh)
+                seg = torch.zeros((len(fresh), L) + payloads.shape[1:], device=dev)
+                for k, (m, s, e) in enumerate(fresh):
+                    seg[k, : e - s] = payloads[s:e]
+                    self._scene_counts[m] = int(counts[e - 1])
+                cap = spec.scene_capacity
+                empty = Cloud(torch.zeros(len(fresh), cap, 2, device=dev),
+                              torch.zeros(len(fresh), cap, 2, device=dev),
+                              torch.zeros(len(fresh), cap, dtype=torch.bool, device=dev))
+                scenes_k = fast_mod.materialize(
+                    spec, empty, seg, torch.as_tensor(counts[[e - 1 for _, _, e in fresh]]))
+                self._pool_write([m for m, _, _ in fresh], scenes_k)
+                self.tracker.state = self.tracker.state._replace(
+                    scene=scenes_k.map(lambda x: x[-1]))
+            else:
+                self.tracker.state = self.tracker.state._replace(scene=scene0)
 
         # ---- loop closures / solve / relocalize at the chunk boundary -------
         if cfg.enable_loop_closure and new_maps:
-            self._chunk_closure_round(new_maps)
+            with profiling.timed("slam.closure"):
+                self._chunk_closure_round(new_maps)
         return world
 
     def _detect_pool(self, queries: list[int]) -> list[lc.ClosureCandidate]:
@@ -245,8 +246,9 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         ICP on ``projective``), and one read of all results."""
         dcfg = self.detector.cfg
         poses = self._poses_host
-        jobs = self.detector.selector.select_many(queries, poses, self.n_maps,
-                                                  self.adjacency)
+        with self._span("detect.select", phase=False):
+            jobs = self.detector.selector.select_many(queries, poses, self.n_maps,
+                                                      self.adjacency)
         if not jobs:
             return []
         cap = self.tracker.spec.scene_capacity
@@ -257,54 +259,58 @@ class ChunkedGraphSLAM2D(GraphSLAM2D):
         acfg = dcfg.aligner
         packed = []
         for i in range(0, len(jobs), self.detect_batch):
-            batch = jobs[i: i + self.detect_batch]
-            fi = torch.as_tensor([m for _, m in batch], device=self.device)
-            qi = torch.as_tensor([q for q, _ in batch], device=self.device)
-            fixed = self._pool.map(lambda x: x[fi, :det_cap])
-            moving = self._pool.map(lambda x: x[qi, :det_cap])
-            initials = torch.from_numpy(np.stack(
-                [lc.relative_np(poses[m], poses[q]) for q, m in batch])).to(self.device)
-            if dcfg.backend == "fused_nn":
-                r = nn_icp_kernel.fused_align_pairs(
-                    fixed, moving, initials,
-                    iterations=acfg.max_iterations, max_distance=acfg.point_distance,
-                    normal_cos=acfg.normal_cos, chi_threshold=acfg.chi_threshold,
-                    min_inliers=acfg.min_num_inliers, corr_refresh=dcfg.fused_corr_refresh)
-            else:
-                r = lc._batch_align_pairs(acfg, self.detector.proj, fixed, moving, initials)
-            packed.append(torch.cat([r.num_inliers[:, None].to(torch.float32),
-                                     r.num_correspondences[:, None].to(torch.float32),
-                                     r.chi_inliers[:, None], r.estimate], dim=1))
-        res = torch.cat(packed).cpu().numpy()
-        return lc.gate_candidates(dcfg, jobs, res[:, 0], res[:, 1], res[:, 2], res[:, 3:6])
+            with self._span("detect.align", phase=False):
+                batch = jobs[i: i + self.detect_batch]
+                fi = torch.as_tensor([m for _, m in batch], device=self.device)
+                qi = torch.as_tensor([q for q, _ in batch], device=self.device)
+                fixed = self._pool.map(lambda x: x[fi, :det_cap])
+                moving = self._pool.map(lambda x: x[qi, :det_cap])
+                initials = torch.from_numpy(np.stack(
+                    [lc.relative_np(poses[m], poses[q]) for q, m in batch])).to(self.device)
+                if dcfg.backend == "fused_nn":
+                    r = nn_icp_kernel.fused_align_pairs(
+                        fixed, moving, initials,
+                        iterations=acfg.max_iterations, max_distance=acfg.point_distance,
+                        normal_cos=acfg.normal_cos, chi_threshold=acfg.chi_threshold,
+                        min_inliers=acfg.min_num_inliers,
+                        corr_refresh=dcfg.fused_corr_refresh)
+                else:
+                    r = lc._batch_align_pairs(acfg, self.detector.proj, fixed, moving,
+                                              initials)
+                packed.append(torch.cat([r.num_inliers[:, None].to(torch.float32),
+                                         r.num_correspondences[:, None].to(torch.float32),
+                                         r.chi_inliers[:, None], r.estimate], dim=1))
+        with self._span("detect.gate", phase=False):
+            res = torch.cat(packed).cpu().numpy()
+            return lc.gate_candidates(dcfg, jobs, res[:, 0], res[:, 1], res[:, 2],
+                                      res[:, 3:6])
 
     def _chunk_closure_round(self, new_maps: list[int]) -> None:
-        t0 = time.perf_counter()
         cfg = self.cfg
-        for c in self._detect_pool(new_maps):
-            self.validator.add(c)
-        t0 = self._phase("detect", t0)
-        accepted = self.validator.vote(self._poses_host, self.adjacency,
-                                       list(self._edges_host))
-        t0 = self._phase("vote", t0)
+        with self._span("detect"):
+            for c in self._detect_pool(new_maps):
+                self.validator.add(c)
+        with self._span("vote"):
+            accepted = self.validator.vote(self._poses_host, self.adjacency,
+                                           list(self._edges_host))
         to_merge = []
-        for c in accepted:
-            if c.candidate_map in self.adjacency[c.query_map]:
-                continue
-            self._add_edge(c.candidate_map, c.query_map, c.estimate,
-                           cfg.closure_edge_info)
-            self.num_closures += 1
-            to_merge.append(c)
-        if cfg.enable_closure_merger and to_merge:
-            self._merge_closures_batched(to_merge)
-        t0 = self._phase("merge", t0)
+        with self._span("merge"):
+            for c in accepted:
+                if c.candidate_map in self.adjacency[c.query_map]:
+                    continue
+                self._add_edge(c.candidate_map, c.query_map, c.estimate,
+                               cfg.closure_edge_info)
+                self.num_closures += 1
+                to_merge.append(c)
+            if cfg.enable_closure_merger and to_merge:
+                self._merge_closures_batched(to_merge)
         if not to_merge:
             return
-        self._global_solve()
-        t0 = self._phase("solve", t0)
+        with self._span("solve"):
+            self._global_solve()
         if cfg.enable_relocalizer:
-            self._try_relocalize_host()
-            self._phase("relocalize", t0)
+            with self._span("relocalize"):
+                self._try_relocalize_host()
 
     def _merge_closures_batched(self, closures: list[lc.ClosureCandidate]) -> None:
         """Closure-time map fusion against the pool, batched per round;
@@ -427,22 +433,25 @@ class ChunkedSlamRunner:
         if n == 0:
             return
         t0 = time.perf_counter()
-        slam = self._ensure_slam()
-        ranges = np.stack(self._ranges)
-        if n < n_pad:
-            ranges = np.pad(ranges, ((0, n_pad - n), (0, 0)))
-        clouds = self.preprocessor.compute(ranges)
-        odoms = None
-        if any(o is not None for o in self._odoms):
-            prev = next(o for o in self._odoms if o is not None)
-            filled = []
-            for o in self._odoms:
-                prev = o if o is not None else prev
-                filled.append(prev)
-            odoms = np.stack(filled)
+        with profiling.timed("runner.flush"):
+            slam = self._ensure_slam()
+            ranges = np.stack(self._ranges)
             if n < n_pad:
-                odoms = np.concatenate([odoms, np.repeat(odoms[-1:], n_pad - n, axis=0)])
-        slam.process_chunk(clouds, odoms, n_frames=n)
+                ranges = np.pad(ranges, ((0, n_pad - n), (0, 0)))
+            with profiling.timed("runner.preprocess", self.device, slam.phase_times,
+                                 "preprocess"):
+                clouds = self.preprocessor.compute(ranges)
+            odoms = None
+            if any(o is not None for o in self._odoms):
+                prev = next(o for o in self._odoms if o is not None)
+                filled = []
+                for o in self._odoms:
+                    prev = o if o is not None else prev
+                    filled.append(prev)
+                odoms = np.stack(filled)
+                if n < n_pad:
+                    odoms = np.concatenate([odoms, np.repeat(odoms[-1:], n_pad - n, axis=0)])
+            slam.process_chunk(clouds, odoms, n_frames=n)
         dt = time.perf_counter() - t0
         per = dt / n
         poses = slam.world_trajectory[len(self.trajectory):]

@@ -24,6 +24,7 @@ from ..ops import projector as projector_op
 from ..ops.frame_kernel import FrameSpec, frame_step, track_frames_grid
 from ..utils import cloud as cloud_op
 from ..utils import geometry
+from ..utils import profiling
 from ..utils.cloud import Cloud
 
 
@@ -166,6 +167,7 @@ def seed_from_scene(spec: FrameSpec, scene: Cloud, robot_in_local_map,
         torch.as_tensor(has_odom, dtype=torch.float32, device=dev))
 
 
+@profiling.span("tracker.materialize")
 def materialize(spec: FrameSpec, scene: Cloud, payloads: torch.Tensor,
                 final_count) -> Cloud:
     """Fold [..., T, 8, B] payloads into scenes [..., cap, ...]: for each

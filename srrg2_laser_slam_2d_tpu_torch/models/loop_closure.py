@@ -24,6 +24,7 @@ from ..ops import projector as projector_op
 from ..ops.projector import PolarProjection
 from ..solver import pgo
 from ..utils import cloud as cloud_op
+from ..utils import profiling
 from ..utils.cloud import Cloud
 
 
@@ -318,13 +319,16 @@ class ClosureValidator:
     partition with its trial closures (Cauchy at ``inlier_chi``, gauge at
     its first variable) and counts a vote for every closure whose
     information-weighted residual falls below ``inlier_chi``. After
-    ``min_times_checked`` rounds the vote ratio accepts or rejects."""
+    ``min_times_checked`` rounds the vote ratio accepts or rejects. Each
+    partition's solve is the span ``slam.vote.solve``, its seconds added to
+    ``times["vote.solve"]`` (the owning loop's ``phase_times``)."""
 
     def __init__(self, cfg: ValidatorConfig, closure_info=(100.0, 100.0, 1000.0),
-                 device=None):
+                 device=None, times: dict | None = None):
         self.cfg = cfg
         self.closure_info = np.asarray(closure_info, np.float32)
         self.device = resolve_device(device)
+        self.times = times
         self.pending: list[dict] = []
 
     def add(self, closure: ClosureCandidate) -> None:
@@ -381,11 +385,12 @@ class ClosureValidator:
             info[k] = self.closure_info
         var_valid = np.arange(vc) < nv
         var_fixed = np.arange(vc) == 0
-        g = pgo.graph_from_numpy(sub_poses, var_valid, var_fixed, ei, ej, meas,
-                                 info, valid, device=self.device)
-        solved, _, _ = pgo.optimize(
-            pgo.PGOConfig(max_iterations=10, chi_threshold=self.cfg.inlier_chi), g)
-        opt = solved.poses.cpu().numpy()
+        with profiling.timed("slam.vote.solve", times=self.times, key="vote.solve"):
+            g = pgo.graph_from_numpy(sub_poses, var_valid, var_fixed, ei, ej, meas,
+                                     info, valid, device=self.device)
+            solved, _, _ = pgo.optimize(
+                pgo.PGOConfig(max_iterations=10, chi_threshold=self.cfg.inlier_chi), g)
+            opt = solved.poses.cpu().numpy()
         for p, (i, j, m) in zip(entries, closure_rows):
             e = compose_np(
                 np.array([-np.cos(m[2]) * m[0] - np.sin(m[2]) * m[1],

@@ -24,6 +24,7 @@ from .._device import resolve_device
 from ..io.messages import LaserMessage, OdometryMessage, extract_message
 from ..io.sources import Platform
 from ..utils import cloud as cloud_op
+from ..utils import profiling
 from .preprocessor import PreprocessorConfig, ScanPreprocessor
 from .slam import GraphSLAM2D, GraphSLAMConfig, draw_map
 
@@ -66,7 +67,9 @@ class SlamRunner:
         self.odom_pre = OdomPreprocessor(self.odom_topic)
         self.slam: GraphSLAM2D | None = None
         self.trajectory: list = []   # (timestamp, pose, seconds)
-        self.preprocess_time = 0.0   # seconds spent making clouds, all cues (not synchronised)
+        # seconds spent making clouds, all cues (the span ``runner.preprocess``,
+        # synchronised only while tracing)
+        self.preprocess_time = 0.0
 
     def _ensure_slam(self) -> GraphSLAM2D:
         if self.slam is None:
@@ -87,9 +90,9 @@ class SlamRunner:
         return self.slam
 
     def _preprocess(self, laser: LaserMessage):
-        t_pre = time.perf_counter()
-        cloud = self.preprocessor.process_message(laser)
-        self.preprocess_time += time.perf_counter() - t_pre
+        with profiling.timed("runner.preprocess", self.device) as span:
+            cloud = self.preprocessor.process_message(laser)
+        self.preprocess_time += span.seconds
         return cloud
 
     def put_message(self, msg) -> bool:

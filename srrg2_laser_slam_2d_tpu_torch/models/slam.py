@@ -22,7 +22,6 @@ power-of-two capacities, built when a solve needs it.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -31,6 +30,7 @@ import torch
 from .._device import resolve_device
 from ..ops.frame_kernel import FrameSpec
 from ..solver import cg, pgo, schur
+from ..utils import profiling
 from ..utils.cloud import Cloud
 from . import fast_tracker as fast_mod
 from . import loop_closure as lc
@@ -134,21 +134,22 @@ class GraphSLAM2D:
         self.n_maps = 0
         self.n_edges = 0
         self.current_map = -1
+        # seconds per phase of the loop (``_span``); the validator adds its
+        # partition solves under "vote.solve"
+        self.phase_times: dict[str, float] = {}
         self.detector = lc.BruteForceLoopDetector(cfg.detector, cfg.tracker.projection)
         self.validator = lc.ClosureValidator(cfg.validator, cfg.closure_edge_info,
-                                             device=self.device)
+                                             device=self.device, times=self.phase_times)
         self.num_closures = 0
         self.relocalizations = 0
-        # seconds per phase of the loop, each synchronised at its end
-        self.phase_times: dict[str, float] = {}
 
-    def _phase(self, name: str, t0: float) -> float:
-        """Add the time since ``t0`` to phase ``name``; returns the new start."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        self.phase_times[name] = self.phase_times.get(name, 0.0) + (t1 - t0)
-        return t1
+    def _span(self, name: str, phase: bool = True):
+        """The span ``slam.<name>``, its seconds added to ``phase_times[name]``.
+        While tracing, a phase ends in a synchronise on the card, so that
+        its seconds hold the work it queued; a child span (``phase``
+        False) never synchronises."""
+        return profiling.timed(f"slam.{name}", self.device if phase else None,
+                               self.phase_times, name)
 
     # ---- graph bookkeeping (host) -------------------------------------------
     def _add_variable(self, pose: np.ndarray, fixed: bool = False) -> int:
@@ -241,72 +242,69 @@ class GraphSLAM2D:
         """One message pack: a laser measurement (sensor frame; with
         ``cue_extrinsics`` one per cue, stacked [C, N, ...]) and the
         odometry pose, if any."""
-        t0 = time.perf_counter()
-        if self.current_map < 0:
-            self.current_map = self._add_variable(np.zeros(3, np.float32), fixed=True)
-            self.scenes.append(None)   # captured when the map stops being current
+        with self._span("track"):
+            if self.current_map < 0:
+                self.current_map = self._add_variable(np.zeros(3, np.float32), fixed=True)
+                self.scenes.append(None)   # captured when the map stops being current
+                self.tracker.compute(measurement, odom)
+                return
             self.tracker.compute(measurement, odom)
-            self._phase("track", t0)
-            return
-        self.tracker.compute(measurement, odom)
-        # splitting criterion: a new local map after local_map_distance metres
-        ril = self._robot_in_local_map_np()
-        self._phase("track", t0)
+            # splitting criterion: a new local map after local_map_distance metres
+            ril = self._robot_in_local_map_np()
         if float(np.linalg.norm(ril[:2])) >= self.cfg.local_map_distance:
             self._split(measurement, odom, ril)
 
     def _split(self, measurement: Cloud, odom, ril: np.ndarray) -> None:
         cfg = self.cfg
-        t0 = time.perf_counter()
         # the relocalizer's role is to AVOID new nodes: before splitting, try
         # to re-attach to an existing nearby local map
-        jumped = cfg.enable_relocalizer and self._relocalize_at_split(ril)
-        t0 = self._phase("relocalize", t0)
+        with self._span("relocalize"):
+            jumped = cfg.enable_relocalizer and self._relocalize_at_split(ril)
         if jumped:
             return
-        prev = self.current_map
-        new = self._add_variable(_wrap(lc.compose_np(self._poses_host[prev], ril)))
-        self._add_edge(prev, new, ril, cfg.odom_edge_info)
-        self.scenes.append(None)
-        # the previous map stops being current: capture its final scene, then
-        # reseed the tracker on the new local map with this measurement
-        self.scenes[prev] = self.tracker.capture_scene()
-        self.tracker.reseed(measurement, odom)
-        self.scenes[new] = self.tracker.capture_scene()
-        self.current_map = new
-        self._phase("split", t0)
+        with self._span("split"):
+            prev = self.current_map
+            new = self._add_variable(_wrap(lc.compose_np(self._poses_host[prev], ril)))
+            self._add_edge(prev, new, ril, cfg.odom_edge_info)
+            self.scenes.append(None)
+            # the previous map stops being current: capture its final scene, then
+            # reseed the tracker on the new local map with this measurement
+            self.scenes[prev] = self.tracker.capture_scene()
+            self.tracker.reseed(measurement, odom)
+            self.scenes[new] = self.tracker.capture_scene()
+            self.current_map = new
         if cfg.enable_loop_closure:
             self._loop_closure_round(new)
 
     def _loop_closure_round(self, query: int) -> None:
         cfg = self.cfg
-        t0 = time.perf_counter()
-        for c in self.detector.detect(query, self.scenes, self.poses_np, self.n_maps,
-                                      self.adjacency):
-            self.validator.add(c)
-        t0 = self._phase("detect", t0)
-        accepted = self.validator.vote(self.poses_np, self.adjacency,
-                                       list(self._edges_host))
-        t0 = self._phase("vote", t0)
+        with self._span("detect"):
+            for c in self.detector.detect(query, self.scenes, self.poses_np, self.n_maps,
+                                          self.adjacency):
+                self.validator.add(c)
+        with self._span("vote"):
+            accepted = self.validator.vote(self.poses_np, self.adjacency,
+                                           list(self._edges_host))
         added = 0
-        for c in accepted:
-            # one closure edge per map pair: later passes over the same area
-            # detect the same closure again at every split
-            if c.candidate_map in self.adjacency[c.query_map]:
-                continue
-            self._add_edge(c.candidate_map, c.query_map, c.estimate, cfg.closure_edge_info)
-            self.num_closures += 1
-            added += 1
-            if cfg.enable_closure_merger:
-                self._merge_closure_scenes(c)
-        t0 = self._phase("merge", t0)
+        with self._span("merge"):
+            for c in accepted:
+                # one closure edge per map pair: later passes over the same area
+                # detect the same closure again at every split
+                if c.candidate_map in self.adjacency[c.query_map]:
+                    continue
+                self._add_edge(c.candidate_map, c.query_map, c.estimate,
+                               cfg.closure_edge_info)
+                self.num_closures += 1
+                added += 1
+                if cfg.enable_closure_merger:
+                    self._merge_closure_scenes(c)
         if not added:
             return
-        self._global_solve()
-        t0 = self._phase("solve", t0)
+        with self._span("solve"):
+            self._global_solve()
         if cfg.enable_relocalizer:
-            self._try_relocalize()
-            self._phase("relocalize", t0)
+            with self._span("relocalize"):
+                self._try_relocalize()
 
     def _merge_closure_scenes(self, c: lc.ClosureCandidate) -> None:
         """Fuse the query map's scene into the candidate map's on an

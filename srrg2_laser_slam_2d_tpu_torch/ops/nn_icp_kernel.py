@@ -29,8 +29,10 @@ TILE_F = 512
 # cross term (4), the expanded squared distance (3) and the compare (1)
 FLOPS_PER_DISTANCE = 8
 
-# launches of the CUDA kernel (reset by callers that count a run)
+# launches of the CUDA kernel, and the pairs aligned on either route
+# (reset by callers that count a run)
 launches = 0
+pairs = 0
 
 
 class FusedAlignResult(NamedTuple):
@@ -243,6 +245,8 @@ def fused_align_pairs(fixed: Cloud, moving: Cloud, initials: torch.Tensor,
     """Align J (fixed, moving) cloud pairs ([J, N, ...] each; ``initials``
     [J, 3] moving-in-fixed) in ONE launch. CUDA tensors launch the kernel;
     CPU tensors take the plain version."""
+    global pairs
+    pairs += initials.shape[0]
     fixedP, movingP = pack_fixed(fixed), pack_moving(moving)
     initials = initials.to(torch.float32).contiguous()
     args = (iterations, float(max_distance) ** 2, float(normal_cos),

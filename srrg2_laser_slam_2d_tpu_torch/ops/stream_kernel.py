@@ -43,6 +43,7 @@ import torch
 from . import _beam_kernels as bk
 from . import _cuda
 from .frame_kernel import FrameSpec, _params
+from ..utils import profiling
 
 # launches of the CUDA kernel (reset by callers that count a run)
 launches = 0
@@ -222,6 +223,7 @@ def track_streams_grid_plain(spec: FrameSpec, cacheB, poseB, measC_stack, odom_s
 
 # ------------------------------------------------------------ CUDA kernel
 
+@profiling.span("stream.track_streams_grid")
 def track_streams_grid(spec: FrameSpec, cacheB: torch.Tensor, poseB: torch.Tensor,
                        measC_stack: torch.Tensor, odom_stack: torch.Tensor):
     """Track K streams over T frames as ONE launch. measC_stack [T, 8, K, B],

@@ -20,6 +20,11 @@ import torch
 
 from ..utils import geometry
 
+# solves ``optimize`` ran and the iterations they took, each iteration one
+# read of chi on the host (reset by callers that count a run)
+solves = 0
+iterations = 0
+
 
 @dataclass(frozen=True)
 class PGOConfig:
@@ -232,6 +237,14 @@ def optimize(cfg: PGOConfig, graph: PoseGraph, reduce=no_reduce):
     chi in place: nothing in one process, over a process group when the
     graph holds one rank's share of the edges (``parallel/dist_pgo.py``), so
     every rank solves the same system and takes the same exit."""
+    global solves, iterations
+    solves += 1
+    out = _optimize(cfg, graph, reduce)
+    iterations += out[2]
+    return out
+
+
+def _optimize(cfg: PGOConfig, graph: PoseGraph, reduce):
     v = graph.var_capacity
     diag_extra = torch.where(
         graph.var_fixed | ~graph.var_valid,

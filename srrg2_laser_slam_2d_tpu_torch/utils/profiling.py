@@ -2,13 +2,24 @@
 ``srrg2_laser_slam_2d_tpu/utils/profiling.py``: the reference's
 ``srrg2_core::Profiler`` and ``SystemUsageCounter::tic/toc`` (per-module
 timing, a global enable switch, totals and percentiles), plus the device
-hooks: a ``torch.profiler`` trace of a block, the card's idle share over
-such a trace, and an operation count of a function.
+hooks: a ``torch.profiler`` trace of a block and the card's idle share over
+such a trace.
+
+``timed`` is the program's span recorder. Tracing is on while
+``enable_logging`` is true or a ``torch.profiler`` session records; then a
+span opens ``torch.profiler.record_function(name)`` (a ``user_annotation``
+on the trace's clock, beside the card's kernels and copies), synchronises
+the card at its end where the caller passes a ``device``, and records under
+``enable_logging``. With tracing off a span reads the host clock alone: no
+annotation, no synchronise. Either way it can add its seconds to a
+caller's dict (a loop's ``phase_times``). ``span`` makes a whole function
+one such span.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
@@ -16,6 +27,7 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 enable_logging = False  # Profiler::enable_logging equivalent
 
@@ -41,20 +53,55 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-@contextlib.contextmanager
-def timed(name: str, device=None):
-    """Per-module scoped timer; records when ``enable_logging`` is on. With
-    a CUDA ``device`` the device is synchronised before each clock reading,
-    so the stage's time holds its queued work and none queued before it."""
-    _sync(device)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _sync(device)
-        dt = time.perf_counter() - t0
+def tracing() -> bool:
+    """Whether spans are recorded: ``enable_logging`` is on or a
+    ``torch.profiler`` session is active."""
+    return enable_logging or _autograd_profiler._is_profiler_enabled
+
+
+class timed:
+    """A span over a block (``with timed(...)``). While ``tracing()``, an
+    annotation ``name`` on the profiler's trace, and with a CUDA ``device``
+    a synchronise at the block's end, so the span holds the work it queued;
+    recorded under ``enable_logging``. With tracing off neither annotation
+    nor synchronise. Tracing or not, the block's seconds are ``seconds``
+    after it and are added to ``times[key]`` where ``times`` is given."""
+
+    def __init__(self, name: str, device=None, times: dict | None = None, key: str = ""):
+        self.name, self.device, self.times, self.key = name, device, times, key
+        self.annotation = None
+
+    def __enter__(self):
+        # the flag first: an annotation costs some 15 us even unrecorded
+        if tracing():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.annotation is not None:
+            _sync(self.device)
+        self.seconds = time.perf_counter() - self.t0
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        if self.times is not None:
+            self.times[self.key] = self.times.get(self.key, 0.0) + self.seconds
         if enable_logging:
-            _records[name].append(dt)
+            _records[self.name].append(self.seconds)
+        return False
+
+
+def span(name: str):
+    """Decorator: every call of the function is the span ``name`` (no
+    synchronise, no seconds kept)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with timed(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def report() -> dict[str, dict]:
@@ -128,16 +175,3 @@ def idle_share(trace) -> float:
     t0 = min(float(e["ts"]) for e in events)
     t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
     return 1.0 - sum(b - a for a, b in busy) / max(t1 - t0, 1e-9)
-
-
-def compiled_cost(fn, *args, **kwargs) -> dict:
-    """Floating-point operations of one call of ``fn`` on example args, as
-    ``torch.utils.flop_counter`` counts them; ``{}`` where counting fails."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    try:
-        with FlopCounterMode(display=False) as counter:
-            fn(*args, **kwargs)
-        return {"flops": float(counter.get_total_flops())}
-    except Exception:
-        return {}

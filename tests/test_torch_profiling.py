@@ -3,7 +3,7 @@ against the JAX package's on the goldens of tests/test_aux.py (the switch,
 the report, tic / toc), and its device hooks on the host: the idle share
 of a hand-built Chrome trace with known intervals, a CPU trace written by
 ``device_trace`` (which holds no device work, so its idle share is
-refused), and ``compiled_cost``'s operation count."""
+refused). The span recorder ``timed`` is ``tests/test_torch_tracing.py``'s."""
 
 import json
 
@@ -89,13 +89,3 @@ def test_device_trace_writes_a_chrome_trace_on_the_host(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(ValueError):
             tprof.idle_share(path)
-
-
-def test_compiled_cost_counts_the_operations():
-    a, b = torch.ones(8, 16), torch.ones(16, 4)
-    assert tprof.compiled_cost(torch.matmul, a, b) == {"flops": 2.0 * 8 * 16 * 4}
-
-    def fails(x):
-        raise RuntimeError("no count")
-
-    assert tprof.compiled_cost(fails, a) == {}
