@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. print the card's name and power limit, build all ten kernels from
+  1. print the card's name and power limit, build all eleven kernels from
      ``srrg2_laser_slam_2d_tpu_torch/csrc`` (one ``nvcc`` per source, all
      started together);
   2. the frame kernel against its plain PyTorch version on the card, on the
@@ -21,6 +21,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``onehot``); then the ``roll`` band and ``corr_refresh=1`` over the first
      ``STREAM_SHORT_T`` frames; and at ``corr_refresh=1`` each stream of the
      K-stream kernel against the single-stream CUDA kernel on that stream;
+     then the materialize kernel (``ops/materialize_kernel.py``, which
+     replaces no TPU kernel) against its plain version on the card on the
+     payloads of kernel 3 at the fleet's shapes (kernel 3 over 32 different
+     streams, tiled out to K = 128 and cut to K = 8, T = 255, B = 768, cap
+     4,096; each scene's payload rows 0-3, old scene and count offset by
+     its index, so that no two scenes are alike; the payload handed in as a
+     ``movedim`` view and the counts as ``pB[:, 7]``, as the fleet does):
+     scenes EQUAL, inputs unchanged, one launch a call at K = 128 and two at
+     K = 8, device ms of both and of the plain version beside the bytes
+     bound;
   5. the four kernels of the per-message loop against their plain versions
      on the card, on real inputs: the first ``SCENE_FRAMES`` corridor frames
      tracked into one local map leave a scene of some 3,000 live points in
@@ -49,7 +59,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``measure_streams`` at K = 8, 32 and 128 (10 chained calls, one
      synchronisation, best of 5; one kernel launch per chained call; then
      the kernel and the materialization of one call each alone), and
-     the one-line headline of ``bench/headline.py`` at K = 32;
+     the one-line headline of ``bench/headline.py`` at K = 32; the
+     materialize kernel's launches asserted over each (one a
+     materialization at K = 128, two at K = 8 and 32 and for the single
+     stream) and its calls printed by scenes x frames;
   8. the per-message loop, every launch counter set to 0 before each run and
      read after it: ``LaserTracker`` over ``ONE_MAP_SCANS`` corridor scans in
      one local map on routes A (banded aligner kernel), B (dense aligner and
@@ -185,8 +198,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      --boss-config`` with the LASER_0 document per message over the first
      100 frames of phase 10's CARMEN log: the plain ICP tracker (route C
      under the default z-buffer), no kernel launched; frames/s printed;
-  14. one JSON line ``{"kernels": [...]}`` with each of the ten kernels'
-     launches on its main path (the probes: their own probe runs), its error
+  14. one JSON line ``{"kernels": [...]}`` with each of the eleven kernels'
+     launches on its main path (the probes: their own probe runs; the
+     materialize kernel: the corridor run's, with the throughput path's
+     under ``throughput_launches`` and both paths' calls by scenes x frames
+     under ``calls``), its error
      against the plain version, its time, the plain version's time, its
      bound and the time of one PyTorch call that computes the same function
      where there is one (the gather probe's ``torch.gather``).
@@ -201,11 +217,12 @@ path runs at a smaller depth so that the whole stays inside its time limit:
 phase 8's routes A, B and C over the first ``MESSAGE_FRAMES`` = 300
 corridor frames. ``--only message-kernels`` / ``--only message-path`` /
 ``--only multi`` / ``--only slam-app`` / ``--only solvers`` / ``--only
-port-rest`` / ``--only boss`` run the build and part 5, part 8, part 9,
-part 10, part 11, part 12 (with a corridor run of its own) or part 13 (with
-its own dual drive and CARMEN log) alone while developing, and print no
-result lines. ``bench/compare_csrc.py`` reuses the check functions to time
-every kernel call this script times against other CUDA sources.
+port-rest`` / ``--only boss`` / ``--only materialize`` run the build and part
+5, part 8, part 9, part 10, part 11, part 12 (with a corridor run of its
+own), part 13 (with its own dual drive and CARMEN log) or the materialize
+check of part 4 alone while developing, and print no result lines.
+``bench/compare_csrc.py`` reuses the check functions to time every kernel
+call this script times against other CUDA sources.
 
 Tolerances. Kernel and plain version run the same float32 operations in
 the same order (the CUDA sources are built without multiply-add
@@ -280,6 +297,7 @@ STREAM_K = 32
 STREAM_FRAMES = 256
 STREAM_SHORT_T = 48
 STREAM_KS = (8, 32, 128)
+MATERIALIZE_KS = (128, 8)
 FLAGGED_TOL = 1e-2
 SCENE_FRAMES = 40
 MESSAGE_FRAMES = 300
@@ -818,6 +836,79 @@ def check_stream_kernel(device) -> dict:
             "err_vs_single_stream_kernel": single_err}
 
 
+def check_materialize_kernel(device) -> dict:
+    """The materialize kernel against its plain version on kernel 3's
+    payloads at the fleet's shapes, every scene its own (see the module
+    docstring, part 4)."""
+    from srrg2_laser_slam_2d_tpu_torch.bench import stream_bench
+    from srrg2_laser_slam_2d_tpu_torch.models import fast_tracker as ft
+    from srrg2_laser_slam_2d_tpu_torch.ops import materialize_kernel as mk
+    from srrg2_laser_slam_2d_tpu_torch.ops import stream_kernel as sk
+    from srrg2_laser_slam_2d_tpu_torch.utils.cloud import Cloud
+
+    spec, states0, cacheB, poseB, measC, odomS = stream_bench.build_different_streams(
+        STREAM_FRAMES, STREAM_K, device=device)
+    _, pB0, pay0 = sk.track_streams_grid(spec, cacheB, poseB, measC, odomS)
+    T, _, K0, B = pay0.shape
+    cap = spec.scene_capacity
+    xy0 = torch.stack([s.scene.xy for s in states0])
+    nm0 = torch.stack([s.scene.normal for s in states0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows, err = {}, 0.0
+    for K in MATERIALIZE_KS:
+        # the K0 different streams tiled out to K; payload rows 0-3, the old
+        # scene and the count offset by the scene's index, so that no two
+        # scenes' inputs or results are alike (rows 4 and 5 are kernel 3's)
+        tiles = -(-K // K0)
+        off = torch.arange(K, device=device, dtype=torch.float32)
+        payB = pay0.repeat(1, 1, tiles, 1)[:, :, :K].clone()
+        payB[:, 0:4] += off[:, None]
+        pB = pB0.repeat(tiles, 1)[:K].clone()
+        pB[:, 7] = (pB[:, 7] - off).clamp(min=0.0)
+        scene = Cloud(xy0.repeat(tiles, 1, 1)[:K] + off[:, None, None],
+                      nm0.repeat(tiles, 1, 1)[:K] - off[:, None, None],
+                      torch.zeros((K, cap), dtype=torch.bool, device=device))
+        args = (spec, scene, payB.movedim(2, 0), pB[:, 7])
+        inputs = [x.clone() for x in (payB, pB, scene.xy, scene.normal)]
+        before = mk.launches
+        got = ft.materialize(*args)
+        torch.cuda.synchronize()
+        launched = mk.launches - before
+        want = mk.materialize_plain(*args)
+        for name in ("xy", "normal", "valid"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (K, name)
+            err = max(err, float((getattr(got, name).float()
+                                  - getattr(want, name).float()).abs().max()))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(inputs, (payB, pB, scene.xy, scene.normal))), "inputs written"
+        assert launched == (1 if 2 * K >= sms else 2), (K, sms, launched)
+        live = int((payB[:, 5] > 0).sum())
+        ms = kernel_time_ms(f"materialize_kernel K={K}", device_time_ms,
+                            lambda: mk.materialize(*args), 50)
+        plain_ms = device_time_ms(lambda: mk.materialize_plain(*args), 10)
+        # bytes: rows 4 and 5 of every lane read once; a scene row's 16 bytes
+        # read once (the winner's payload rows 0-3 or the old scene), its 16
+        # written with its valid byte
+        bytes_moved = K * T * B * 8 + K * cap * (16 + 16 + 1)
+        b_ms, b_by = bound(bytes_moved, 0.0)
+        log(f"materialize kernel K={K} ({K0} different streams tiled) T={T} B={B} cap={cap}: "
+            f"{ms:.4f} ms ({launched} launches), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); scenes equal, {live} live lanes, "
+            f"{int(got.valid.sum())} valid rows")
+        rows[K] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "launches_per_call": launched,
+                   "shape": f"K={K} T={T} B={B} cap={cap}"}
+    main = rows[MATERIALIZE_KS[0]]
+    return {"name": "materialize_kernel", "route": "cuda",
+            "source": "srrg2_laser_slam_2d_tpu_torch/csrc/materialize_kernel.cu",
+            "replaces": "none: srrg2_laser_slam_2d_tpu/models/fast_tracker.py:materialize "
+                        "is XLA code",
+            "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "shape": main["shape"],
+            "by_k": rows}
+
+
 # ------------------------------------------------- the per-message kernels
 
 def tracked_scene(msgs, slam_cfg, pcfg, device):
@@ -1117,16 +1208,17 @@ def check_message_kernels(msgs, slam_cfg, pcfg, device) -> list[dict]:
 def _launch_modules():
     from srrg2_laser_slam_2d_tpu_torch.bench import exp_gather
     from srrg2_laser_slam_2d_tpu_torch.ops import (banded_align_kernel, beam_zbuffer_kernel,
-                                                   frame_kernel, multicue_align_kernel,
-                                                   nn_icp_kernel, projective_align_kernel,
-                                                   projector_kernel, scene_kernel,
-                                                   stream_kernel)
+                                                   frame_kernel, materialize_kernel,
+                                                   multicue_align_kernel, nn_icp_kernel,
+                                                   projective_align_kernel, projector_kernel,
+                                                   scene_kernel, stream_kernel)
     return {"frame_kernel": frame_kernel, "nn_icp_kernel": nn_icp_kernel,
             "stream_kernel": stream_kernel, "projector_kernel": projector_kernel,
             "scene_kernel": scene_kernel, "banded_align_kernel": banded_align_kernel,
             "projective_align_kernel": projective_align_kernel,
             "multicue_align_kernel": multicue_align_kernel,
-            "beam_zbuffer_kernel": beam_zbuffer_kernel, "gather_probe_kernel": exp_gather}
+            "beam_zbuffer_kernel": beam_zbuffer_kernel, "gather_probe_kernel": exp_gather,
+            "materialize_kernel": materialize_kernel}
 
 
 def reset_launches() -> None:
@@ -1329,15 +1421,20 @@ def trajectory_rms_vs(runner, path: str) -> float:
 
 def corridor_run(cfg_path: str, msgs, device, capture=None) -> tuple[dict, object]:
     from srrg2_laser_slam_2d_tpu_torch.bench import corridor_e2e
-    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, nn_icp_kernel
+    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, materialize_kernel, nn_icp_kernel
 
     frame_kernel.launches = 0
     nn_icp_kernel.launches = 0
+    materialize_kernel.launches = 0
+    materialize_kernel.calls.clear()
     with capture or contextlib.nullcontext():
         summary, runner = corridor_e2e.run_pass(cfg_path, CHUNK, None, device, msgs)
     torch.cuda.synchronize()
     summary["launches"] = {"frame_kernel": frame_kernel.launches,
-                           "nn_icp_kernel": nn_icp_kernel.launches}
+                           "nn_icp_kernel": nn_icp_kernel.launches,
+                           "materialize_kernel": materialize_kernel.launches}
+    summary["materialize_calls"] = {f"{s}x{t}": c for (s, t), c
+                                    in sorted(materialize_kernel.calls.items())}
     traj = np.stack([p for _, p, _ in runner.trajectory])
     assert traj.shape == (summary["frames"], 3) and np.isfinite(traj).all()
     summary["rms_vs_tpu_run_m"] = trajectory_rms_vs(runner, "bench/results/corridor_r05.tum")
@@ -1346,6 +1443,7 @@ def corridor_run(cfg_path: str, msgs, device, capture=None) -> tuple[dict, objec
     assert summary["gate_verdict"] == "PASS", summary
     assert corridor_e2e.closures_accepted(summary), "no loop closure was accepted"
     assert summary["launches"]["frame_kernel"] > 0 and summary["launches"]["nn_icp_kernel"] > 0
+    assert summary["launches"]["materialize_kernel"] > 0
     return summary, runner
 
 
@@ -1383,42 +1481,63 @@ def corridor_projective_run(msgs, device, fused: dict) -> dict:
 def headline_run(device) -> dict:
     """The throughput path through its entry points. The stream kernel's
     count is read over the K sweep (one launch per chained call, warm-up
-    run included) and again over the headline."""
+    run included) and again over the headline; the materialize kernel's
+    likewise (one or two launches per materialization, by the number of
+    scenes), with its calls by (scenes, frames)."""
     from srrg2_laser_slam_2d_tpu_torch._device import card_description
     from srrg2_laser_slam_2d_tpu_torch.bench import headline, stream_bench
-    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, stream_kernel
+    from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel, materialize_kernel, stream_kernel
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def per_call(scenes: int, lanes: int) -> int:
+        return 1 if materialize_kernel.blocks_per_scene(scenes, lanes, sms) == 1 else 2
 
     reps = 5
     calls = (reps + 1) * stream_bench.CHAIN
     frame_kernel.launches = 0
     stream_kernel.launches = 0
+    materialize_kernel.launches = 0
+    materialize_kernel.calls.clear()
     spec, state0, measC, odoms = stream_bench.build_inputs(STREAM_FRAMES, device=device)
+    T, _, B = measC.shape
     result = {"card": card_description(device), "num_beams": int(spec.projection.cols),
               "gn_iterations": spec.iterations,
               "single_stream": stream_bench.measure_single(spec, state0, measC, odoms,
                                                            reps=reps),
               "streams": []}
     assert frame_kernel.launches == calls and stream_kernel.launches == 0
+    assert materialize_kernel.launches == calls * per_call(1, T * B)
     for k in STREAM_KS:
-        before = stream_kernel.launches
+        before = stream_kernel.launches, materialize_kernel.launches
         result["streams"].append(stream_bench.measure_streams(spec, state0, measC, odoms, k,
                                                               reps=reps, parts=True))
         # one launch per chained call, then the parts: one launch for their
-        # inputs and the kernel alone, warm-up included
-        assert stream_kernel.launches - before == calls + 1 + (reps + 1)
+        # inputs and the kernel alone, warm-up included; the scenes of every
+        # chained call and of the materialization alone
+        assert stream_kernel.launches - before[0] == calls + 1 + (reps + 1)
+        assert (materialize_kernel.launches - before[1]
+                == (calls + reps + 1) * per_call(k, T * B)), (k, materialize_kernel.launches)
     log(json.dumps(result))
     sweep_launches = stream_kernel.launches
 
     stream_kernel.launches = 0
+    before = materialize_kernel.launches
     line = headline.headline(device, reps=reps)
     log(json.dumps(line))
     assert line["mode"] == "k_stream" and line["streams"] == STREAM_K
     assert np.isfinite(line["value"]) and line["value"] > 0
     assert stream_kernel.launches == calls
+    assert materialize_kernel.launches - before == calls * per_call(STREAM_K, T * B)
+    shapes = {f"{s}x{t}": c for (s, t), c in sorted(materialize_kernel.calls.items())}
+    log(f"materialize kernel on the throughput path: {materialize_kernel.launches} launches, "
+        f"calls by scenes x frames {shapes}")
     return {"stream_bench": result, "headline": line,
             "launches": {"stream_kernel": stream_kernel.launches,
                          "stream_kernel_sweep": sweep_launches,
-                         "frame_kernel_single_stream": frame_kernel.launches}}
+                         "frame_kernel_single_stream": frame_kernel.launches,
+                         "materialize_kernel_throughput": materialize_kernel.launches},
+            "materialize_calls": shapes}
 
 
 # ------------------------------------------------------------ the MULTI path
@@ -2923,7 +3042,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA card.")
     ap.add_argument("--only", choices=["message-kernels", "message-path", "multi", "slam-app",
-                                       "solvers", "port-rest", "boss"],
+                                       "solvers", "port-rest", "boss", "materialize"],
                     default=None,
                     help="while developing: run the build and this part alone; "
                          "prints no result lines")
@@ -2954,6 +3073,9 @@ def main() -> int:
     if args.only == "multi":
         multi_path(device)
         return 0
+    if args.only == "materialize":
+        check_materialize_kernel(device)
+        return 0
     if args.only == "slam-app":
         slam_app_slice({"ate_rmse_translation_m": None}, device)
         return 0
@@ -2980,7 +3102,8 @@ def main() -> int:
     stream_entry = check_stream_kernel(device)
     kernels = [check_frame_kernel(msgs, slam_cfg, pcfg, device),
                check_nn_icp_kernel(slam_cfg.detector, device), stream_entry,
-               *check_message_kernels(msgs, slam_cfg, pcfg, device)]
+               *check_message_kernels(msgs, slam_cfg, pcfg, device),
+               check_materialize_kernel(device)]
 
     def stamp(phase: str) -> None:
         log(f"[{time.perf_counter() - t_start:.1f} s] {phase} done")
@@ -3021,6 +3144,13 @@ def main() -> int:
     assert route_d["launches"]["frame_kernel"] > 0
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    # the materialize kernel: the corridor's launches above, the throughput
+    # path's beside them, and the calls of both by scenes x frames
+    for k in kernels:
+        if k["name"] == "materialize_kernel":
+            k["throughput_launches"] = throughput["launches"]["materialize_kernel_throughput"]
+            k["calls"] = {"corridor": main_run["materialize_calls"],
+                          "throughput": throughput["materialize_calls"]}
     # kernel 6: the MULTI loop; the probes: their own probe runs
     kernels += multi["kernels"]
     for k in kernels:
@@ -3066,7 +3196,8 @@ def main() -> int:
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+    keys += ("throughput_launches", "calls")
+    log(json.dumps({"kernels": [{k: kern[k] for k in keys if k in kern} for kern in kernels]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

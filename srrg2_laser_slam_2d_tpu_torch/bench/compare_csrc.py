@@ -301,8 +301,9 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
     own = (_cuda.CSRC, _cuda.BUILD_DIR)
     ab = _cuda.BUILD_DIR / "ab"
     builds = {"other": (other, ab / "other"), "own": own}
-    jobs = [(f"other/{n}", other / f"{n}.cu", ab / "other" / f"lib{n}.so", ())
-            for n in _cuda.KERNELS]
+    # a kernel newer than the other sources is built from the package's own
+    jobs = [(f"other/{n}", (other if (other / f"{n}.cu").exists() else own[0]) / f"{n}.cu",
+             ab / "other" / f"lib{n}.so", ()) for n in _cuda.KERNELS]
     jobs += [(f"own/{n}", own[0] / f"{n}.cu", own[1] / f"lib{n}.so", ()) for n in _cuda.KERNELS]
     jobs += [(f"timing/{n}", own[0] / f"{n}.cu", ab / "timing" / f"lib{n}.so",
               ("-DFRAME_PHASE_TIMING",)) for n in PHASE_NAMES]

@@ -7,8 +7,9 @@ The scene is not updated per frame. Every frame emits an [8, B] payload
 (merge / replace / append decisions with their final scene rows, assigned
 in the kernel from the carried count), and ``materialize`` folds any
 number of payloads into the scene at once, the last write to a row
-winning. The canvas pack and ``materialize`` are plain PyTorch: they are
-XLA code, not Pallas kernels, in the JAX package.
+winning. The canvas pack is plain PyTorch, as it is XLA code in the JAX
+package; ``materialize`` (XLA code there too) is a CUDA kernel on the card,
+with its plain version on the CPU (``ops/materialize_kernel.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops import materialize_kernel
 from ..ops import projector as projector_op
 from ..ops.frame_kernel import FrameSpec, frame_step, track_frames_grid
 from ..utils import cloud as cloud_op
@@ -172,31 +174,10 @@ def materialize(spec: FrameSpec, scene: Cloud, payloads: torch.Tensor,
                 final_count) -> Cloud:
     """Fold [..., T, 8, B] payloads into scenes [..., cap, ...]: for each
     scene row the last write (highest frame, then highest lane) wins; the
-    first ``final_count`` rows are valid. Leading dimensions batch scenes."""
-    lead = payloads.shape[:-3]
-    T, _, B = payloads.shape[-3:]
-    cap = spec.scene_capacity
-    dev = payloads.device
-    P = payloads.reshape((-1, T, 8, B))
-    S_ = P.shape[0]
-    rows = P[:, :, 4, :].to(torch.int64).reshape(S_, T * B)
-    kind = P[:, :, 5, :].reshape(S_, T * B)
-    live = (kind > 0) & (rows >= 0) & (rows < cap)
-    flat = torch.arange(T * B, device=dev).expand(S_, -1)
-    win = torch.full((S_, cap + 1), -1, dtype=torch.int64, device=dev).scatter_reduce(
-        1, torch.where(live, rows, torch.full_like(rows, cap)),
-        torch.where(live, flat, torch.full_like(flat, -1)), "amax")[:, :cap]
-    has = (win >= 0)[..., None]
-    vals = P[:, :, 0:4, :].permute(0, 1, 3, 2).reshape(S_, T * B, 4)
-    picked = torch.gather(vals, 1, win.clamp(min=0)[..., None].expand(S_, cap, 4))
-    xy0 = scene.xy.reshape(S_, cap, 2)
-    nm0 = scene.normal.reshape(S_, cap, 2)
-    xy = torch.where(has, picked[..., 0:2], xy0)
-    nm = torch.where(has, picked[..., 2:4], nm0)
-    counts = torch.as_tensor(final_count, device=dev).to(torch.int64).reshape(S_, 1)
-    valid = torch.arange(cap, device=dev) < counts
-    return Cloud(xy.reshape(lead + (cap, 2)), nm.reshape(lead + (cap, 2)),
-                 valid.reshape(lead + (cap,)))
+    first ``final_count`` rows are valid. Leading dimensions batch scenes.
+    CUDA tensors launch ``csrc/materialize_kernel.cu``; CPU tensors take
+    the plain version (``ops/materialize_kernel.py``)."""
+    return materialize_kernel.materialize(spec, scene, payloads, final_count)
 
 
 class FastTracker:

@@ -22,7 +22,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 KERNELS = ("frame_kernel", "nn_icp_kernel", "stream_kernel", "projector_kernel",
            "scene_kernel", "banded_align_kernel", "projective_align_kernel",
-           "multicue_align_kernel", "beam_zbuffer_kernel", "gather_probe_kernel")
+           "multicue_align_kernel", "beam_zbuffer_kernel", "gather_probe_kernel",
+           "materialize_kernel")
 
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # operation as the plain PyTorch versions do (one kernel per operation)
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "gather_probe_kernel": {"gather_probe": [_VOID] * 3 + [_INT] * 5 + [_VOID],
                             # K, B, shift, form, stream (an empty kernel at its launch shape)
                             "gather_probe_floor": [_INT] * 4 + [_VOID]},
+    # payload, old xy, old normal, counts, three outputs, partial table, params, stream
+    "materialize_kernel": {"materialize_scenes": [_VOID] * 8 + [ctypes.c_void_p, _VOID]},
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 

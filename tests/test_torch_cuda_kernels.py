@@ -18,7 +18,8 @@ kernels' estimates agree to 1e-5, their counts to 1 (the multi-cue
 aligner's, which sums twice the rows, to 2). The probes: the
 shift z-buffer's winners and validity EQUAL and depths within 1e-6, also
 with forced depth ties; the gather EQUAL (the same additions in the same
-order) at K = 1, 8, 32 and at 256 lanes."""
+order) at K = 1, 8, 32 and at 256 lanes. The materialize kernel only
+chooses values: its scenes are EQUAL to the plain version's."""
 
 import dataclasses
 import functools
@@ -36,6 +37,7 @@ from srrg2_laser_slam_2d_tpu_torch.ops import _beam_kernels as bk
 from srrg2_laser_slam_2d_tpu_torch.ops import banded_align_kernel as bak
 from srrg2_laser_slam_2d_tpu_torch.ops import clip as clip_op
 from srrg2_laser_slam_2d_tpu_torch.ops import frame_kernel as fk
+from srrg2_laser_slam_2d_tpu_torch.ops import materialize_kernel as mk
 from srrg2_laser_slam_2d_tpu_torch.ops import nn_icp_kernel as nk
 from srrg2_laser_slam_2d_tpu_torch.ops import projective_align_kernel as pak
 from srrg2_laser_slam_2d_tpu_torch.ops import projector as projector_op
@@ -52,6 +54,102 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     return torch.device("cuda")
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits (NaN equals itself)."""
+    return x.contiguous().view(torch.int32) if x.is_floating_point() else x
+
+
+# rows under kind > 0 that the live rule has to take or leave as the plain
+# version does: NaN, infinities, far out of range, truncated to 0, dead edges
+_EDGE_ROWS = (float("nan"), float("-inf"), float("inf"), -1e10, 1e10, -0.5, -1.0, 0.5)
+
+
+def _materialize_case(card, case: str):
+    """(spec, scene, payloads, final_count, launches a call) of one case.
+    Lanes are live with probability ``live``, their rows drawn over
+    [-2, cap + 2), one in twenty non-integer, so rows are written by several
+    frames and by several lanes of one frame, and some rows by none."""
+    import types
+
+    g = torch.Generator(device=card).manual_seed(sum(map(ord, case)))
+    K, T, B, cap, live, edge = {"fleet_k128": (128, 255, 768, 4096, 0.05, False),
+                                "fleet_k8": (8, 255, 768, 4096, 0.05, False),
+                                "corridor": (None, 1024, 768, 8192, 0.05, False),
+                                "fresh": (3, 300, 768, 8192, 0.05, False),
+                                "flush": (None, 1, 768, 4096, 0.5, False),
+                                "edge_rows": (8, 64, 768, 4096, 0.3, True)}[case]
+    fleet = case in ("fleet_k128", "fleet_k8", "edge_rows")
+    lead = () if K is None else (K,)
+    shape = (T, 8, K, B) if fleet else lead + (T, 8, B)
+    base = torch.randn(shape, generator=g, device=card)
+    lane_shape = (T, K, B) if fleet else lead + (T, B)
+    rows = torch.randint(-2, cap + 2, lane_shape, generator=g, device=card).float()
+    rows = torch.where(torch.rand(lane_shape, generator=g, device=card) < 0.05, rows + 0.5, rows)
+    if edge:
+        specials = torch.tensor(_EDGE_ROWS + (float(cap), cap - 0.5), device=card)
+        pick = torch.randint(0, specials.numel(), lane_shape, generator=g, device=card)
+        rows = torch.where(torch.rand(lane_shape, generator=g, device=card) < 0.2,
+                           specials[pick], rows)
+    kind = torch.randint(1, 3, lane_shape, generator=g, device=card).float()
+    kind = kind * (torch.rand(lane_shape, generator=g, device=card) < live)
+    row_dim = 1 if fleet else -2
+    base.select(row_dim, 4).copy_(rows)
+    base.select(row_dim, 5).copy_(kind)
+    S = 1 if K is None else K
+    xy = torch.randn((S, cap, 2), generator=g, device=card)
+    nm = torch.randn((S, cap, 2), generator=g, device=card)
+    if case == "fleet_k8":      # one scene broadcast to every stream, as stream_bench's
+        xy, nm = xy[:1].expand(S, cap, 2), nm[:1].expand(S, cap, 2)
+    scene = Cloud(xy.reshape(lead + (cap, 2)), nm.reshape(lead + (cap, 2)),
+                  torch.zeros(lead + (cap,), dtype=torch.bool, device=card))
+    counts = torch.randint(0, cap + 1, (S,), generator=g, device=card).float()
+    if case == "edge_rows":     # whole counts, read as int64 by the kernel
+        payloads, final_count = base.movedim(2, 0), counts.to(torch.int64)
+    elif fleet:                 # the fleet's pB[:, 7]: a strided column on the card
+        pB = torch.zeros(S, 16, device=card)
+        pB[:, 7] = counts
+        payloads, final_count = base.movedim(2, 0), pB[:, 7]
+    elif case == "fresh":       # ChunkedSlamRunner's fresh maps: segments padded with
+        ends = (300, 120, 7)    # dead frames, counts from the host
+        for k, e in enumerate(ends):
+            base[k, e:] = 0.0
+        scene = scene.map(torch.zeros_like)
+        payloads, final_count = base, torch.as_tensor(counts.cpu().numpy())
+    elif case == "corridor":    # the first segment: a Python float
+        payloads, final_count = base, float(counts[0])
+    else:                       # FastTracker.flush: pose[0, 7], a 0-d tensor on the card
+        payloads, final_count = base, counts[0]
+    spec = types.SimpleNamespace(scene_capacity=cap)
+    return spec, scene, payloads, final_count, 1 if case in ("fleet_k128", "flush") else 2
+
+
+@pytest.mark.parametrize("case", ["fleet_k128", "fleet_k8", "corridor", "fresh", "flush",
+                                  "edge_rows"])
+def test_materialize_kernel_matches_plain_on_card(card, case):
+    """The kernel's scenes EQUAL to the plain version's (nothing is summed,
+    only chosen), at the fleet's K = 128 (one block a scene, one launch)
+    and K = 8 (lanes split, two launches), the corridor's S = 1, T = 1,024,
+    cap 8,192, a padded fresh-scene batch, T = 1, and rows that are NaN,
+    infinite, negative, too large or non-integer under kind > 0. The inputs
+    are left as they were."""
+    spec, scene, payloads, final_count, want_launches = _materialize_case(card, case)
+    kept = [t.clone() for t in (payloads, scene.xy, scene.normal)]
+    count_kept = torch.as_tensor(final_count).clone()
+    before, calls_before = mk.launches, sum(mk.calls.values())
+    got = ft.materialize(spec, scene, payloads, final_count)
+    torch.cuda.synchronize()
+    assert mk.launches - before == want_launches <= 2
+    assert sum(mk.calls.values()) == calls_before + 1
+    want = mk.materialize_plain(spec, scene, payloads, final_count)
+    for name in ("xy", "normal", "valid"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.xy.shape == scene.xy.shape and got.valid.shape == scene.valid.shape
+    for a, b in zip(kept, (payloads, scene.xy, scene.normal)):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(count_kept, torch.as_tensor(final_count))
+    assert bool((got.xy != scene.xy).any())      # rows were taken from the payloads
 
 
 def _room_ranges(poses: np.ndarray, beams: int) -> np.ndarray:
