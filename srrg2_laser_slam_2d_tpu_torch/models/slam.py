@@ -115,11 +115,16 @@ class GraphSLAM2D:
                  sensor_in_robot=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # seconds per phase of the loop (``_span``); the validator adds its
+        # partition solves under "vote.solve", the multi-cue tracker its
+        # step's parts under "track.clip", "track.align" and "track.merge"
+        self.phase_times: dict[str, float] = {}
         if cfg.cue_extrinsics is not None:
             # the MULTI assembly: ``process`` takes cue-stacked measurements
             # [C, N, ...]; only the tracker sees them
             self.tracker = tracker_mod.MultiCueTracker(cfg.tracker, cfg.cue_extrinsics,
-                                                       device=self.device)
+                                                       device=self.device,
+                                                       times=self.phase_times)
         elif cfg.use_fast_tracker:
             self.tracker = fast_mod.FastTracker(frame_spec(cfg), sensor_in_robot,
                                                 device=self.device)
@@ -134,9 +139,6 @@ class GraphSLAM2D:
         self.n_maps = 0
         self.n_edges = 0
         self.current_map = -1
-        # seconds per phase of the loop (``_span``); the validator adds its
-        # partition solves under "vote.solve"
-        self.phase_times: dict[str, float] = {}
         self.detector = lc.BruteForceLoopDetector(cfg.detector, cfg.tracker.projection)
         self.validator = lc.ClosureValidator(cfg.validator, cfg.closure_edge_info,
                                              device=self.device, times=self.phase_times)

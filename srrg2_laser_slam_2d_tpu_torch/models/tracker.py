@@ -40,9 +40,12 @@ from ..ops import icp
 from ..ops import merge as merge_op
 from ..ops.projector import PolarProjection
 from ..utils import cloud as cloud_op
-from ..utils import geometry
+from ..utils import geometry, profiling
 from ..utils.cloud import Cloud
 from ..utils.status import Status
+
+# tracked multi-cue frames, either route (reset by callers that count a run)
+multi_frames = 0
 
 
 def default_projection() -> PolarProjection:
@@ -262,12 +265,17 @@ def fused_multi_arguments(cfg: TrackerConfig, measurements: Cloud, extrinsics: t
 
 
 def track_step_multi(cfg: TrackerConfig, state: TrackerState, measurements: Cloud,
-                     extrinsics: torch.Tensor, odom: torch.Tensor,
-                     odom_valid: torch.Tensor) -> tuple[TrackerState, TrackStats]:
+                     extrinsics: torch.Tensor, odom: torch.Tensor, odom_valid: torch.Tensor,
+                     times: dict | None = None) -> tuple[TrackerState, TrackStats]:
     """One multi-cue tracking step. ``measurements`` [C, N, ...] holds the
     cues' clouds in their sensor frames, ``extrinsics`` [C, 3] their
     sensor-in-robot poses; the aligner estimate maps prev-robot ->
-    curr-robot, so X_new = X_old estimate^-1."""
+    curr-robot, so X_new = X_old estimate^-1. Its three parts are the child
+    spans ``tracker.multi.clip`` (every cue's clip), ``tracker.multi.align``
+    and ``tracker.multi.merge`` (every cue's merge), which synchronise
+    nothing and add their seconds to ``times`` under ``track.clip``,
+    ``track.align`` and ``track.merge`` where it is given."""
+    global multi_frames
     n_cues = extrinsics.shape[0]
     if measurements.xy.dim() != 3:
         # one cloud without a cue axis (a MULTI assembly fed one laser topic,
@@ -275,23 +283,28 @@ def track_step_multi(cfg: TrackerConfig, state: TrackerState, measurements: Clou
         # on it with this error, on either route
         raise IndexError(f"multi-cue tracking takes the cues' clouds stacked [C, N, 2]; "
                          f"got {tuple(measurements.xy.shape)}")
-    moving, T0 = multi_step_inputs(cfg, state, extrinsics, odom, odom_valid)
-    if cfg.use_fused_aligner:
-        from ..ops.multicue_align_kernel import fused_projective_align_multi
+    with profiling.timed("tracker.multi.clip", times=times, key="track.clip"):
+        moving, T0 = multi_step_inputs(cfg, state, extrinsics, odom, odom_valid)
+    with profiling.timed("tracker.multi.align", times=times, key="track.align"):
+        if cfg.use_fused_aligner:
+            from ..ops.multicue_align_kernel import fused_projective_align_multi
 
-        args, kw = fused_multi_arguments(cfg, measurements, extrinsics, moving, T0)
-        res = _fused_result(fused_projective_align_multi(*args, **kw), cfg.aligner.max_iterations)
-    else:
-        res = icp.align_multi(cfg.aligner, cfg.projection, measurements, extrinsics, moving,
-                              T0, odom_prior=T0)
+            args, kw = fused_multi_arguments(cfg, measurements, extrinsics, moving, T0)
+            res = _fused_result(fused_projective_align_multi(*args, **kw),
+                                cfg.aligner.max_iterations)
+        else:
+            res = icp.align_multi(cfg.aligner, cfg.projection, measurements, extrinsics,
+                                  moving, T0, odom_prior=T0)
 
-    X_new = geometry.compose(state.robot_in_local_map, geometry.inverse(res.estimate))
-    scene = state.scene
-    for c in range(n_cues):
-        scene = merge_op.merge_projective(
-            cfg.projection, scene, measurements.map(lambda x: x[c]),
-            measurement_in_scene=geometry.compose(X_new, extrinsics[c]),
-            merge_threshold=cfg.merge_threshold)
+    with profiling.timed("tracker.multi.merge", times=times, key="track.merge"):
+        X_new = geometry.compose(state.robot_in_local_map, geometry.inverse(res.estimate))
+        scene = state.scene
+        for c in range(n_cues):
+            scene = merge_op.merge_projective(
+                cfg.projection, scene, measurements.map(lambda x: x[c]),
+                measurement_in_scene=geometry.compose(X_new, extrinsics[c]),
+                merge_threshold=cfg.merge_threshold)
+    multi_frames += 1
     new_state = state._replace(
         scene=scene, robot_in_local_map=X_new,
         last_odom=torch.where(odom_valid, odom, state.last_odom),
@@ -325,10 +338,12 @@ class MultiCueTracker:
     uses (``compute`` takes cue-stacked measurements [C, N, ...]). Runs on
     the CUDA card unless ``device`` says otherwise; without a card it raises
     (``device="cpu"`` runs the plain PyTorch versions). The scene keeps its
-    capacity: there is no regrowth on this path."""
+    capacity: there is no regrowth on this path. ``times`` (the SLAM loop's
+    ``phase_times``) receives the seconds of each step's parts."""
 
-    def __init__(self, cfg: TrackerConfig, extrinsics, device=None):
+    def __init__(self, cfg: TrackerConfig, extrinsics, device=None, times: dict | None = None):
         self.cfg = cfg
+        self.times = times
         self.device = resolve_device(device)
         self.extrinsics = torch.as_tensor(np.asarray(extrinsics, np.float32),
                                           device=self.device)
@@ -376,7 +391,7 @@ class MultiCueTracker:
         odom_t = self._pose(odom) if odom is not None else torch.zeros(3, device=self.device)
         odom_valid = torch.tensor(odom is not None, device=self.device)
         self.state, stats = track_step_multi(self.cfg, self.state, measurements,
-                                             self.extrinsics, odom_t, odom_valid)
+                                             self.extrinsics, odom_t, odom_valid, self.times)
         self.steps += 1
         return stats
 

@@ -33,8 +33,11 @@ from .projective_align_kernel import (MAX_ITERATIONS, ProjAlignResult, align_spe
 from .projector import PolarProjection
 from .projector_kernel import cols_padded
 
-# launches of the CUDA kernel (reset by callers that count a run)
+# launches of the CUDA kernel, and the moving and fixed rows they took,
+# summed over the launches from the shapes (reset by callers that count a run)
 launches = 0
+moving_rows = 0
+fixed_rows = 0
 MAX_CUES = 4
 MAX_MOVING = 4096   # moving rows the kernel packs in shared memory
 
@@ -147,7 +150,7 @@ def fused_projective_align_multi(proj: PolarProjection, fixed_xy, fixed_normal, 
     their sensor frames, extrinsics [C, 3], moving [M, ...] in the previous
     robot frame, estimate prev-robot -> curr-robot). CUDA tensors launch
     the kernel; CPU tensors take the plain version."""
-    global launches
+    global launches, moving_rows, fixed_rows
     _check(fixed_xy, iterations)
     if fixed_xy.device.type == "cpu":
         return fused_projective_align_multi_plain(
@@ -190,5 +193,7 @@ def fused_projective_align_multi(proj: PolarProjection, fixed_xy, fixed_normal, 
     if err != 0:
         raise RuntimeError(f"multicue_align_kernel launch failed: {_cuda.error_string(err)}")
     launches += 1
+    moving_rows += mxy.shape[0]
+    fixed_rows += C * N
     iters = out[8:].reshape(4, MAX_ITERATIONS)[:, :iterations].T
     return ProjAlignResult(out[0:3], out[4], out[5], out[6], out[7], iters)

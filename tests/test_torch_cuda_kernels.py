@@ -759,10 +759,12 @@ def test_multicue_align_kernel_matches_plain_on_card(card, dual_room_scans, cues
     for kw in (dict(odom_weight=1.0), dict(odom_weight=0.0, damping=5.0),
                dict(odom_weight=1.0, min_corr=100000)):
         kw = dict(kw, odom_prior=t0, iterations=10, chi_threshold=0.05)
-        before = mak.launches
+        before = mak.launches, mak.moving_rows, mak.fixed_rows
         k = mak.fused_projective_align_multi(*args, **kw)
         torch.cuda.synchronize()
-        assert mak.launches == before + 1
+        # one launch, its rows counted from the shapes
+        assert (mak.launches, mak.moving_rows, mak.fixed_rows) == (
+            before[0] + 1, before[1] + mov.xy.shape[0], before[2] + m.xy.shape[0] * m.xy.shape[1])
         p = mak.fused_projective_align_multi_plain(*args, **kw)
         np.testing.assert_allclose(k.estimate.cpu().numpy(), p.estimate.cpu().numpy(),
                                    atol=1e-5)
@@ -786,10 +788,12 @@ def test_multicue_tracker_on_card_follows_the_plain_version(card, dual_room_scan
     on_card = tr.MultiCueTracker(cfg, MULTI_EXTR, device=card)
     on_cpu = tr.MultiCueTracker(cfg, MULTI_EXTR, device="cpu")
     mak.launches = 0
+    frames = tr.multi_frames
     for k, c in enumerate(packs):
         on_card.compute(c, poses[k])
         on_cpu.compute(c.to("cpu"), poses[k])
     assert on_card.steps == len(packs) - 1 == mak.launches
+    assert tr.multi_frames - frames == on_card.steps + on_cpu.steps
     np.testing.assert_allclose(on_card.robot_in_local_map.cpu().numpy(),
                                on_cpu.robot_in_local_map.numpy(), atol=2e-4)
     assert np.linalg.norm(on_cpu.robot_in_local_map.numpy()[:2]) > 0.5
