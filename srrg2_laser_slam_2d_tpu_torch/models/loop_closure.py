@@ -11,6 +11,7 @@ candidates in one batched projective ICP (``_batch_align``).
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -26,6 +27,12 @@ from ..solver import pgo
 from ..utils import cloud as cloud_op
 from ..utils import profiling
 from ..utils.cloud import Cloud
+
+# ``BreadthFirstSelector.select_many``: calls, breadth-first levels run and
+# (query, neighbour) pairs gathered before the distance filter, always on
+select_calls = 0
+select_levels = 0
+select_expansions = 0
 
 
 def relative_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -180,28 +187,43 @@ class BreadthFirstSelector:
     def select_many(self, queries: list[int], poses: np.ndarray, n_maps: int,
                     adjacency: list[set[int]]) -> list[tuple[int, int]]:
         """(query, candidate) jobs for every query, nearest first: one
-        level-synchronous BFS over a [Q, M] frontier."""
+        level-synchronous breadth-first search for all Q queries at once,
+        over a CSR form of the adjacency, its frontier a flat array of
+        ``query row * M + node`` keys (work follows the edges the frontier
+        touches, not Q * M^2)."""
+        global select_calls, select_levels, select_expansions
+        select_calls += 1
         cfg = self.cfg
         Q = len(queries)
         if Q == 0 or n_maps == 0:
             return []
         M = n_maps
-        adj = np.zeros((M, M), bool)
-        for i, nbrs in enumerate(adjacency[:M]):
-            for j in nbrs:
-                if j < M:
-                    adj[i, j] = True
+        rows = [[j for j in nbrs if j < M] for nbrs in adjacency[:M]]
+        deg = np.zeros(M, np.int64)
+        deg[:len(rows)] = [len(r) for r in rows]
+        indptr = np.zeros(M + 1, np.int64)
+        np.cumsum(deg, out=indptr[1:])
+        indices = np.fromiter(itertools.chain.from_iterable(rows), np.int64,
+                              count=int(indptr[-1]))
         max_d = max(cfg.aggressive_relocalize_graph_max_range, 2) + 1
         dist = np.full((Q, M), 1 << 30, np.int64)
-        frontier = np.zeros((Q, M), bool)
-        frontier[np.arange(Q), queries] = True
-        dist[np.arange(Q), queries] = 0
+        flat = dist.reshape(-1)
+        qrow = np.arange(Q, dtype=np.int64)
+        node = np.asarray(queries, np.int64)
+        dist[qrow, node] = 0
         for level in range(1, max_d + 1):
-            nxt = (frontier @ adj) & (dist > level)
-            if not nxt.any():
+            out = deg[node]
+            n = int(out.sum())
+            # each frontier row's out-edges, laid end to end
+            start = np.repeat(indptr[node] - (np.cumsum(out) - out), out)
+            keys = np.repeat(qrow, out) * M + indices[start + np.arange(n)]
+            select_levels += 1
+            select_expansions += n
+            keys = np.unique(keys[flat[keys] > level])
+            if keys.size == 0:
                 break
-            dist[nxt] = level
-            frontier = nxt
+            flat[keys] = level
+            qrow, node = np.divmod(keys, M)
         gd = np.minimum(dist, 10**9)
         rng = np.full((Q, M), cfg.max_local_map_distance * cfg.relocalize_range_scale)
         widen = gd >= cfg.aggressive_relocalize_graph_distance
