@@ -44,10 +44,11 @@ seeded synthetic cloud of 8,192 rows (uniform over 20 m x 20 m, 721 beams
 over +-pi; 3,200 and 8,192 of them valid), kernel 8 also on batches of 4
 and 16 such clouds in one launch.
 
-Sources whose kernels 7 and 8 predate the layout the wrappers take now
-(one cloud a launch, int32 indices, a canvas finished by PyTorch ops) are
-driven through ``legacy_project_local`` and ``legacy_canvas``, their
-wrappers of that time. Prints one JSON object and writes it to ``--out``.
+Every build is called through the package's own wrappers and entry-point
+declarations (``_cuda.use_build`` rebinds them), so the other sources must
+take the C interfaces of the package's (those since kernels 7 and 8 took
+batches, int64 indices and a finished canvas). Prints one JSON object and
+writes it to ``--out``.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ import torch
 from ..ops import _cuda
 from ..ops import projector_kernel as pk
 from ..ops import scene_kernel as sk
-from ..ops.projector import Canvas
+from ..ops.frame_kernel import PHASE_CYCLES
 
 PHASE_NAMES = {
     "nn_icp_kernel": ("pack the valid points", "pass constants", "nearest-neighbour scan",
@@ -100,98 +101,11 @@ HISTOGRAM_ROUTE = {"projector_kernel": "C kernel z-buffer", "scene_kernel": "B"}
 ALIGNER_ROUTE = {"banded_align_kernel": "A", "projective_align_kernel": "B"}
 
 
-class _LegacyProjectorParams(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("B", ctypes.c_int), ("cols", ctypes.c_int),
-                ("f", ctypes.c_float), ("c", ctypes.c_float),
-                ("range_min", ctypes.c_float), ("range_max", ctypes.c_float)]
-
-
-class _LegacySceneParams(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("B", ctypes.c_int), ("cols", ctypes.c_int),
-                ("chunk", ctypes.c_int), ("f", ctypes.c_float), ("c", ctypes.c_float),
-                ("range_min", ctypes.c_float), ("range_max", ctypes.c_float)]
-
-
-def _legacy_project_one(proj, xy, valid) -> Canvas:
-    dev = xy.device
-    B = pk.cols_padded(proj)
-    depth = torch.empty(B, dtype=torch.float32, device=dev)
-    idx = torch.empty(B, dtype=torch.int32, device=dev)
-    params = _LegacyProjectorParams(xy.shape[0], B, proj.cols, proj.f, proj.c,
-                                    proj.range_min, proj.range_max)
-    # a function object of its own: the package's signature has one output more
-    fn = _cuda.load("projector_kernel")["project_local"]
-    fn.argtypes, fn.restype = [ctypes.c_void_p] * 6, ctypes.c_int
-    with torch.cuda.device(dev):
-        err = fn(xy.data_ptr(), valid.data_ptr(), depth.data_ptr(), idx.data_ptr(),
-                 ctypes.addressof(params), _cuda.stream_of(dev))
-    if err != 0:
-        raise RuntimeError(f"projector kernel launch failed: {_cuda.error_string(err)}")
-    pk.launches += 1
-    depth, idx = depth[: proj.cols], idx[: proj.cols].to(torch.int64)
-    v = idx >= 0
-    return Canvas(torch.where(v, depth, torch.full_like(depth, 3.0e38)), idx, v)
-
-
-def legacy_project_local(proj, xy, valid) -> Canvas:
-    """Kernel 8's wrapper for sources that launch one cloud at a time and
-    write a B-long depth (1e30 where empty) and int32 indices."""
-    n = xy.shape[-2]
-    fx, fv = xy.reshape(-1, n, 2).contiguous(), valid.reshape(-1, n).contiguous()
-    pk.calls[(n, fx.shape[0])] += 1
-    if not xy.shape[:-2]:
-        return _legacy_project_one(proj, fx[0], fv[0])
-    outs = [_legacy_project_one(proj, fx[k], fv[k]) for k in range(fx.shape[0])]
-    return Canvas(*(torch.stack(f).reshape(xy.shape[:-2] + (proj.cols,)) for f in zip(*outs)))
-
-
-def legacy_canvas(proj, cloud, camera_pose, chunk: int = 1024):
-    """Kernel 7's wrapper for sources that write int32 rows."""
-    dev = cloud.xy.device
-    xy, nm, valid = _cuda.cloud_tensors("cloud", cloud.xy, cloud.normal, cloud.valid, dev)
-    cam = camera_pose.to(torch.float32).contiguous()
-    n, B = xy.shape[0], pk.cols_padded(proj)
-    out = torch.empty(6, B, dtype=torch.float32, device=dev)
-    rows = torch.empty(B, dtype=torch.int32, device=dev)
-    params = _LegacySceneParams(n, B, proj.cols, sk._effective_chunk(n, chunk), proj.f, proj.c,
-                                proj.range_min, proj.range_max)
-    with torch.cuda.device(dev):
-        err = _cuda.load("scene_kernel").scene_canvas(
-            xy.data_ptr(), nm.data_ptr(), valid.data_ptr(), cam.data_ptr(), out.data_ptr(),
-            rows.data_ptr(), ctypes.addressof(params), _cuda.stream_of(dev))
-    if err != 0:
-        raise RuntimeError(f"scene kernel launch failed: {_cuda.error_string(err)}")
-    sk.launches += 1
-    sk.calls[(n, 1)] += 1
-    return out, rows.to(torch.int64)
-
-
-_WRAPPERS = {"projector_kernel": (pk, "project_local", pk.project_local, legacy_project_local),
-             "scene_kernel": (sk, "canvas", sk.canvas, legacy_canvas)}
-
-
-def use_build(csrc: Path, build_dir: Path) -> None:
-    """Point the kernel wrappers at the libraries built from ``csrc`` into
-    ``build_dir``; kernels 7 and 8 of sources without ``canvas_layout``
-    go through their legacy wrappers."""
-    _cuda.CSRC, _cuda.BUILD_DIR = Path(csrc), Path(build_dir)
-    _cuda._LIBS.clear()
-    for name, (mod, attr, current, legacy) in _WRAPPERS.items():
-        if _cuda.library_path(name).exists():
-            layout = hasattr(_cuda.load(name), "canvas_layout")
-            setattr(mod, attr, current if layout else legacy)
-
-
 def phase_cycles(name: str) -> list[int]:
     """The SM cycles of each phase over the last launch of kernel ``name``
     (a -DFRAME_PHASE_TIMING build; thread 0 of block 0)."""
-    lib = _cuda.load(name)
-    lib.frame_phase_cycles.argtypes = [ctypes.c_void_p]
-    lib.frame_phase_cycles.restype = ctypes.c_int
     out = (ctypes.c_ulonglong * 9)()
-    err = lib.frame_phase_cycles(ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"reading the phase cycles failed: {_cuda.error_string(err)}")
+    PHASE_CYCLES.bind(_cuda.library_path(name))(torch.device("cuda"), ctypes.addressof(out))
     return [int(v) for v in out[:len(PHASE_NAMES[name])]]
 
 
@@ -236,7 +150,7 @@ def route_rounds(smoke, builds, slam_cfg, pcfg, msgs, device) -> list:
     """``ROUTES`` from each build in turns (other, own, own, other)."""
     rounds = []
     for label in ("other", "own", "own", "other"):
-        use_build(*builds[label])
+        _cuda.use_build(*builds[label])
         for route in ROUTES:
             name, flags, backend = next(r for r in smoke.MESSAGE_ROUTES if r[0] == route)
             out, _ = smoke.message_route_run(name, flags, backend, slam_cfg, pcfg, msgs, device)
@@ -339,14 +253,14 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
 
     rounds = []
     for label in ("other", "own", "own", "other"):
-        use_build(*builds[label])
+        _cuda.use_build(*builds[label])
         times = {name: method(fn, reps)
                  for name, (method, fn, reps) in smoke.KERNEL_TIMINGS.items()}
         smoke.log(f"{label}: " + json.dumps(times))
         rounds.append({"build": label, "ms": times})
 
     phases = {}
-    use_build(own[0], ab / "timing")
+    _cuda.use_build(own[0], ab / "timing")
     # every device timing of the stamped kernels (block 0 of the last launch)
     stamped = [(label.split(" ")[0], label) for label in smoke.KERNEL_TIMINGS
                if label.split(" ")[0] in PHASE_NAMES and not label.endswith(" paced")]
@@ -362,7 +276,7 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
 
     result = {"rounds": rounds, "phases": phases}
     if only is not None:
-        use_build(*own)
+        _cuda.use_build(*own)
         return result
     # each build's estimates on the corridor batch against the plain version's
     fixed, moving, initials, kw = capture.batch
@@ -372,13 +286,13 @@ def compare(other: Path, smoke, routes: bool = False, clusters: bool = False,
         int(kw["min_inliers"]), int(kw["corr_refresh"])))
     pair_err = {}
     for label in ("other", "own"):
-        use_build(*builds[label])
+        _cuda.use_build(*builds[label])
         r = nk.fused_align_pairs(fixed, moving, initials, **kw)
         pair_err[label] = (r.estimate - plain.estimate).abs().amax(1).cpu().numpy().tolist()
         smoke.log(f"corridor batch, {label} build against the plain version: max per pair "
                   f"{max(pair_err[label]):.3g}, pairs above 1e-3 "
                   f"{sum(e > 1e-3 for e in pair_err[label])}")
-    use_build(*own)
+    _cuda.use_build(*own)
     result.update(corridor_batch=corridor_check, corridor_pair_err=pair_err)
     if routes:
         result.update(routes_and_histograms(smoke, builds, mgr, msgs, device, rounds))
@@ -399,7 +313,7 @@ def routes_and_histograms(smoke, builds, mgr, msgs, device, rounds) -> dict:
     calls = shape_calls(smoke, slam_cfg.tracker.projection, histograms, scene, X, S)
     shape_rounds = []
     for label in ("other", "own", "own", "other"):
-        use_build(*builds[label])
+        _cuda.use_build(*builds[label])
         ms = {name: {key: smoke.device_time_ms(fn, max(4, 64 // int(key.split("x")[1])))
                      for key, fn in fns.items()}
               for name, fns in calls.items()}
@@ -408,7 +322,7 @@ def routes_and_histograms(smoke, builds, mgr, msgs, device, rounds) -> dict:
         row = {"build": label, "ms": ms, "launch_weighted_ms": weighted}
         smoke.log(f"histogram shapes, {label} build: {json.dumps(row)}")
         shape_rounds.append(row)
-    use_build(*builds["own"])
+    _cuda.use_build(*builds["own"])
     aligners = [{"build": r["build"],
                  "launch_weighted_ms": {name: first_own[route]["launches"].get(name, 0)
                                         * r["ms"][name]

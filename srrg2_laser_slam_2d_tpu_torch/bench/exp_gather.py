@@ -36,6 +36,12 @@ launches = 0
 B = 768
 S = 64
 FORMS = ("direct", "roll")
+# canvas, idx, out, K, B, shift, iterations, form, stream
+GATHER_PROBE = _cuda.Entry("gather_probe_kernel", "gather_probe",
+                           [_cuda.PTR] * 3 + [_cuda.INT] * 5 + [_cuda.PTR])
+# K, B, shift, form, stream: an empty kernel at the probe's launch shape
+GATHER_PROBE_FLOOR = _cuda.Entry("gather_probe_kernel", "gather_probe_floor",
+                                 [_cuda.INT] * 4 + [_cuda.PTR])
 
 
 def make_inputs(K: int, device, lanes: int = B, shift: int = S):
@@ -70,10 +76,8 @@ def gather_probe(canvas: torch.Tensor, idx: torch.Tensor, iters: int = 10,
     global launches
     if form not in FORMS:
         raise ValueError(f"form must be one of {FORMS}")
-    if canvas.device.type == "cpu":
+    if not _cuda.on_card(canvas):
         return gather_probe_plain(canvas, idx, iters)
-    if canvas.device.type != "cuda":
-        raise ValueError(f"unsupported device {canvas.device}")
     _, K, lanes = canvas.shape
     _check_lanes(lanes)
     _cuda.check_tensor("canvas", canvas, (8, K, lanes), canvas.device)
@@ -81,13 +85,8 @@ def gather_probe(canvas: torch.Tensor, idx: torch.Tensor, iters: int = 10,
     if idx.dtype != torch.int32 or tuple(idx.shape) != (K, lanes) or idx.device != canvas.device:
         raise ValueError(f"idx: need an int32 ({K}, {lanes}) tensor on {canvas.device}")
     out = torch.empty_like(canvas)
-    lib = _cuda.load("gather_probe_kernel")
-    with torch.cuda.device(canvas.device):
-        err = lib.gather_probe(canvas.data_ptr(), idx.contiguous().data_ptr(), out.data_ptr(),
-                               K, lanes, int(shift), int(iters), FORMS.index(form),
-                               _cuda.stream_of(canvas.device))
-    if err != 0:
-        raise RuntimeError(f"gather_probe_kernel launch failed: {_cuda.error_string(err)}")
+    GATHER_PROBE(canvas.device, canvas.data_ptr(), idx.contiguous().data_ptr(), out.data_ptr(),
+                 K, lanes, int(shift), int(iters), FORMS.index(form))
     launches += 1
     return out
 
@@ -104,12 +103,7 @@ def empty_launch(K: int, lanes: int = B, shift: int = S, form: str = "direct",
     """One launch of an empty kernel at the probe's grid, block and shared
     memory (not counted in ``launches``): the floor under its device time."""
     _check_lanes(lanes)
-    device = torch.device(device or "cuda")
-    with torch.cuda.device(device):
-        err = _cuda.load("gather_probe_kernel").gather_probe_floor(
-            K, lanes, int(shift), FORMS.index(form), _cuda.stream_of(device))
-    if err != 0:
-        raise RuntimeError(f"gather_probe_floor launch failed: {_cuda.error_string(err)}")
+    GATHER_PROBE_FLOOR(torch.device(device or "cuda"), K, lanes, int(shift), FORMS.index(form))
 
 
 def bytes_moved(K: int, lanes: int = B) -> int:

@@ -40,6 +40,8 @@ import torch
 
 from .._device import card_description, resolve_device
 from ..ops import _cuda
+from ..ops.frame_kernel import FRAME_TRACK_GRID, PHASE_CYCLES
+from ..ops.stream_kernel import STREAM_TRACK_GRID
 
 PHASES = ("frame start (canvas load)", "fields + gather + terms", "reduction", "update",
           "final pass", "merge z-buffer", "scan", "payload store")
@@ -47,7 +49,7 @@ CHUNK = 1024
 STREAM_FRAMES = 256
 KS = (8, 32, 128)
 REPS = 5
-ENTRY = {"frame_kernel": "frame_track_grid", "stream_kernel": "stream_track_grid"}
+ENTRY = {"frame_kernel": FRAME_TRACK_GRID, "stream_kernel": STREAM_TRACK_GRID}
 
 
 def build(bpts) -> dict:
@@ -71,18 +73,10 @@ def build(bpts) -> dict:
 
 
 def load(paths: dict) -> dict:
-    """The libraries of one variant, with the entry points called here."""
-    libs = {}
-    for name, path in paths.items():
-        lib = ctypes.CDLL(str(path))
-        entry = getattr(lib, ENTRY[name])
-        entry.argtypes = _cuda._SIGNATURES[name][ENTRY[name]]
-        entry.restype = ctypes.c_int
-        if hasattr(lib, "frame_phase_cycles"):
-            lib.frame_phase_cycles.argtypes = [ctypes.c_void_p]
-            lib.frame_phase_cycles.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    """The entry points of one variant's libraries: {kernel: (its launch,
+    its phase cycles)}."""
+    return {name: (ENTRY[name].bind(path), PHASE_CYCLES.bind(path))
+            for name, path in paths.items()}
 
 
 class Inputs:
@@ -131,13 +125,12 @@ def launcher(libs, inp: Inputs, which: str, arg):
         ins = (measB, odomB, cacheB, poseB)
         out = (torch.empty_like(cacheB), torch.empty_like(poseB),
                torch.empty((T, 8, K, B), device=measB.device))
-    fn = getattr(libs[which], ENTRY[which])
+    entry = libs[which][0]
+    device = ins[0].device
     ptrs = [t.data_ptr() for t in (*ins, *out)]
 
     def launch():
-        err = fn(*ptrs, ctypes.addressof(params), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{which} launch failed: {_cuda.error_string(err)}")
+        entry(device, *ptrs, ctypes.addressof(params))
         return out
     return launch
 
@@ -182,9 +175,7 @@ def phase_table(libs, inp: Inputs, which: str, arg, frames: int) -> dict:
     launch = launcher(libs, inp, which, arg)
     ms = events_ms(launch, 2)             # the stamps of the last launch stay
     buf = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    err = libs[which].frame_phase_cycles(ctypes.addressof(buf))
-    if err != 0:
-        raise RuntimeError(f"reading the phase cycles failed: {_cuda.error_string(err)}")
+    libs[which][1](inp.cacheT.device, ctypes.addressof(buf))
     cycles = [buf[i] / frames for i in range(len(PHASES))]
     ghz = sum(cycles) * frames / (ms * 1e6)
     return {"cycles_per_frame": dict(zip(PHASES, cycles)),
@@ -199,7 +190,7 @@ def barriers(libs, inp: Inputs, which: str, arg, frames: int) -> float:
     launch()
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    libs[which].frame_phase_cycles(ctypes.addressof(buf))
+    libs[which][1](inp.cacheT.device, ctypes.addressof(buf))
     return buf[len(PHASES)] / frames
 
 

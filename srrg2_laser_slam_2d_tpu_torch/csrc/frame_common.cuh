@@ -106,7 +106,7 @@ constexpr int kZbStage = 1024 + kZbMaxCluster;
 constexpr unsigned long long kZbEmptyKey = ~0ull;
 
 // Key into THIS block's shared keys. A 64-bit atomicMin through distributed
-// shared memory is not atomic on the card (bench/dsmem_probe.py), a
+// shared memory is not atomic on the card (PERF.md §6), a
 // CTA-local one is; the blocks' keys then meet at each beam's owner.
 __device__ __forceinline__ void zb_key_min(unsigned long long* keys, int col,
                                            unsigned long long key) {

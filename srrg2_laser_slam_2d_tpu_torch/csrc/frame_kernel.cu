@@ -81,8 +81,4 @@ extern "C" int frame_block_sum13(const float* terms, float* out, int threads, vo
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* kernel_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 PHASE_EXPORT

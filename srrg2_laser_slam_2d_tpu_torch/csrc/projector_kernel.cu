@@ -130,10 +130,6 @@ project_local_kernel(const float* __restrict__ xy, const unsigned char* __restri
 
 PHASE_EXPORT
 
-// The layout of the outputs (bench/compare_csrc.py tells older sources by
-// its absence): the canvas as the callers take it.
-extern "C" int canvas_layout() { return 2; }
-
 extern "C" int project_local(const float* xy, const unsigned char* valid, float* depth,
                              long long* idx, bool* has, const ProjectorParams* params,
                              void* stream) {

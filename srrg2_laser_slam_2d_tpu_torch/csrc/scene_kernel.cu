@@ -225,10 +225,6 @@ scene_canvas_kernel(const float* __restrict__ xy, const float* __restrict__ nm,
 
 PHASE_EXPORT
 
-// The layout of the outputs (bench/compare_csrc.py tells older sources by
-// its absence): int64 rows.
-extern "C" int canvas_layout() { return 2; }
-
 extern "C" int scene_canvas(const float* xy, const float* nm, const unsigned char* valid,
                             const float* cam, float* out, long long* rows,
                             const SceneParams* params, void* stream) {

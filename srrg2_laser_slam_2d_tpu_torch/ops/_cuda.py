@@ -1,10 +1,14 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface (the beam-space kernels
 share the device functions of ``csrc/frame_common.cuh``) and is compiled by ``nvcc``
 into ``build/torch_kernels/lib<name>.so`` at the repository root, then
-loaded with ``ctypes``. A build takes seconds; nothing here runs at import
-time. The C entry points return a ``cudaError_t`` (0 = success).
+loaded with ``ctypes``. Each wrapper module declares the C entry points it
+calls as ``Entry`` objects beside its parameter struct's mirror; calling
+one is the whole host side of a launch. A wrapper takes its route by
+``on_card``: CPU tensors take the plain version, CUDA tensors the kernel.
+A build takes seconds; nothing is built at import time. The C entry points
+return a ``cudaError_t`` (0 = success).
 """
 
 from __future__ import annotations
@@ -20,50 +24,20 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-KERNELS = ("frame_kernel", "nn_icp_kernel", "stream_kernel", "projector_kernel",
-           "scene_kernel", "banded_align_kernel", "projective_align_kernel",
-           "multicue_align_kernel", "beam_zbuffer_kernel", "gather_probe_kernel",
-           "materialize_kernel")
+KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 # --fmad=false: no multiply-add contraction, so the kernels round each
 # operation as the plain PyTorch versions do (one kernel per operation)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 
-_VOID = ctypes.c_void_p
-_INT = ctypes.c_int
-_FLOAT = ctypes.c_float
-# (cloud xy, normal, valid, rows) twice, t0, prior, three outputs, params, stream
-_ALIGN_ARGS = ([_VOID] * 3 + [_INT]) * 2 + [_VOID] * 7
-_SIGNATURES = {
-    "frame_kernel": {"frame_track_grid": [_VOID] * 6 + [ctypes.c_void_p, _VOID],
-                     # terms, out, threads, stream (the reduction alone, for tests)
-                     "frame_block_sum13": [_VOID, _VOID, _INT, _VOID]},
-    "nn_icp_kernel": {"nn_icp_align_pairs": [_VOID] * 5 + [ctypes.c_void_p, _VOID]},
-    "stream_kernel": {"stream_track_grid": [_VOID] * 7 + [ctypes.c_void_p, _VOID]},
-    "projector_kernel": {"project_local": [_VOID] * 7},
-    "scene_kernel": {"scene_canvas": [_VOID] * 8},
-    "banded_align_kernel": {"banded_align": _ALIGN_ARGS},
-    "projective_align_kernel": {"projective_align": _ALIGN_ARGS},
-    # fixed (xy, normal, valid, cues, rows), moving (xy, normal, valid, rows), t0,
-    # prior, extrinsics, three outputs, params, damping, min_corr, stream
-    "multicue_align_kernel": {"multicue_align": [_VOID] * 3 + [_INT] * 2 + [_VOID] * 3 + [_INT]
-                              + [_VOID] * 7 + [_FLOAT] * 2 + [_VOID],
-                              # terms, cues, out, threads, stream (the reduction alone)
-                              "multicue_block_sums_test": [_VOID, _INT, _VOID, _INT, _VOID]},
-    # geoT, out, B, cols, f, c, range_min, range_max, max_shift, stream
-    "beam_zbuffer_kernel": {"beam_zbuffer": [_VOID] * 2 + [_INT] * 2 + [_FLOAT] * 4
-                            + [_INT, _VOID],
-                            # B, stream (an empty kernel at the probe's launch shape)
-                            "beam_zbuffer_floor": [_INT, _VOID]},
-    # canvas, idx, out, K, B, shift, iterations, form, stream
-    "gather_probe_kernel": {"gather_probe": [_VOID] * 3 + [_INT] * 5 + [_VOID],
-                            # K, B, shift, form, stream (an empty kernel at its launch shape)
-                            "gather_probe_floor": [_INT] * 4 + [_VOID]},
-    # payload, old xy, old normal, counts, three outputs, partial table, params, stream
-    "materialize_kernel": {"materialize_scenes": [_VOID] * 8 + [ctypes.c_void_p, _VOID]},
-}
-_LIBS: dict[str, ctypes.CDLL] = {}
+# the C types of the entry points' parameters (PTR: a device or host address)
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+FLOAT = ctypes.c_float
+_LIBS: dict[str, ctypes.CDLL] = {}      # by path
+# every declaration that loads from the package's build (``use_build``)
+ENTRIES: list[Entry] = []
 
 
 def _nvcc() -> str:
@@ -121,21 +95,78 @@ def build(names=KERNELS, force: bool = False) -> dict[str, str]:
                         for name in names if force or _stale(name)])
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing or stale."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    if _stale(name):
-        build([name])
-    lib = ctypes.CDLL(str(library_path(name)))
-    for fn, argtypes in _SIGNATURES[name].items():
-        if not hasattr(lib, fn):   # an older source without a test entry point
-            continue
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    _LIBS[name] = lib
+def _load(name: str, path: Path | None) -> ctypes.CDLL:
+    """The library at ``path``, loaded once; None is the package's own,
+    built first if missing or stale."""
+    own = path is None
+    path = str(library_path(name) if own else path)
+    lib = _LIBS.get(path)
+    if lib is None:
+        if own and _stale(name):
+            build([name])
+        lib = _LIBS[path] = ctypes.CDLL(path)
     return lib
+
+
+class Entry:
+    """One C entry point of ``csrc/<lib>.cu``: its name and the types of
+    all its parameters, the last of them the stream unless ``stream`` is
+    False. ``entry(device, *args)`` calls it with ``args`` and ``device``'s
+    current stream: the library is loaded (built if need be) at the first
+    call and the function handle kept; the device guard is entered only
+    when ``device`` is not the current one; a non-zero return (a
+    ``cudaError_t``) raises RuntimeError."""
+
+    def __init__(self, lib: str, fn: str, argtypes, stream: bool = True,
+                 path: Path | None = None):
+        self.lib, self.fn, self.argtypes, self.stream = lib, fn, tuple(argtypes), stream
+        self.path = path
+        self._handle = None
+        if path is None:
+            ENTRIES.append(self)
+
+    def bind(self, path) -> Entry:
+        """The same entry point in the library at ``path`` (another build)."""
+        return Entry(self.lib, self.fn, self.argtypes, self.stream, Path(path))
+
+    def _resolve(self):
+        if self._handle is None:
+            h = _load(self.lib, self.path)[self.fn]
+            h.argtypes, h.restype = self.argtypes, ctypes.c_int
+            self._handle = h
+        return self._handle
+
+    def __call__(self, device: torch.device, *args) -> None:
+        fn = self._resolve()
+        if self.stream:
+            args += (torch.cuda.current_stream(device).cuda_stream,)
+        if device.index in (None, torch.cuda.current_device()):
+            err = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.lib}.{self.fn} launch failed: {error_string(err)}")
+
+
+def use_build(csrc, build_dir) -> None:
+    """Take the kernels from the libraries built from ``csrc`` into
+    ``build_dir``: every declaration not bound to a path of its own loads
+    from there at its next call."""
+    global CSRC, BUILD_DIR
+    CSRC, BUILD_DIR = Path(csrc), Path(build_dir)
+    for entry in ENTRIES:
+        entry._handle = None
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``t``: True on a CUDA
+    device, False on the CPU (the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
 
 
 def check_tensor(name: str, t, shape: tuple, device) -> None:
@@ -174,13 +205,7 @@ def cloud_tensors(name: str, xy, normal, valid, device):
     return out
 
 
-def stream_of(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def error_string(code: int) -> str:
-    """cudaGetErrorString of a returned error code."""
-    lib = load("frame_kernel")
-    lib.kernel_error_string.restype = ctypes.c_char_p
-    lib.kernel_error_string.argtypes = [ctypes.c_int]
-    return f"{code} ({lib.kernel_error_string(code).decode()})"
+    """``code (cudaGetErrorString(code))``, from PyTorch's CUDA runtime."""
+    rt = torch.cuda.cudart()
+    return f"{code} ({rt.cudaGetErrorString(rt.cudaError(code))})"

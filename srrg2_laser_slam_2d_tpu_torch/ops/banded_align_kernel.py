@@ -18,12 +18,14 @@ from __future__ import annotations
 import torch
 
 from . import _beam_kernels as bk
-from .projective_align_kernel import (ProjAlignResult, align_spec, check_iterations,
-                                      launch_aligner, run_passes)
+from . import _cuda
+from .projective_align_kernel import (ALIGN_ARGS, ProjAlignResult, align_spec,
+                                      check_iterations, launch_aligner, run_passes)
 from .projector import PolarProjection
 
 # launches of the CUDA kernel (reset by callers that count a run)
 launches = 0
+BANDED_ALIGN = _cuda.Entry("banded_align_kernel", "banded_align", ALIGN_ARGS)
 
 
 def flops_per_pass(beams: int) -> int:
@@ -75,16 +77,14 @@ def fused_projective_align_banded(proj: PolarProjection, fixed_xy, fixed_normal,
     global launches
     _check_beam_indexed(proj, moving_xy)
     check_iterations(iterations)
-    if fixed_xy.device.type == "cpu":
+    if not _cuda.on_card(fixed_xy):
         return fused_projective_align_banded_plain(
             proj, fixed_xy, fixed_normal, fixed_valid, moving_xy, moving_normal,
             moving_valid, initial, odom_prior, iterations, point_distance, normal_cos,
             chi_threshold, min_inliers, odom_weight)
-    if fixed_xy.device.type != "cuda":
-        raise ValueError(f"unsupported device {fixed_xy.device}")
     spec = align_spec(proj, iterations, point_distance, normal_cos, chi_threshold,
                       min_inliers, odom_weight)
-    res = launch_aligner("banded_align_kernel", "banded_align", spec, spec.cols_padded,
+    res = launch_aligner(BANDED_ALIGN, spec, spec.cols_padded,
                          (fixed_xy, fixed_normal, fixed_valid),
                          (moving_xy, moving_normal, moving_valid), initial,
                          initial if odom_prior is None else odom_prior)

@@ -29,6 +29,13 @@ MAX_SHIFT = 32
 # operations per lane: 43 for the transform and beam assignment, 4 for the
 # band test and the two compares
 FLOPS_PER_LANE = 47
+# geoT, out, B, cols, f, c, range_min, range_max, max_shift, stream
+BEAM_ZBUFFER = _cuda.Entry("beam_zbuffer_kernel", "beam_zbuffer",
+                           [_cuda.PTR] * 2 + [_cuda.INT] * 2 + [_cuda.FLOAT] * 4
+                           + [_cuda.INT, _cuda.PTR])
+# B, stream: an empty kernel at the probe's launch shape
+BEAM_ZBUFFER_FLOOR = _cuda.Entry("beam_zbuffer_kernel", "beam_zbuffer_floor",
+                                 [_cuda.INT, _cuda.PTR])
 
 
 def pack_cells(cells: Cloud, proj: PolarProjection) -> torch.Tensor:
@@ -75,22 +82,15 @@ def beam_zbuffer_probe(proj: PolarProjection, geoT: torch.Tensor,
     """geoT [8, B] -> [8, B] (layouts in the module docstring). CUDA
     tensors launch the kernel; CPU tensors take the plain version."""
     global launches
-    if geoT.device.type == "cpu":
+    if not _cuda.on_card(geoT):
         return beam_zbuffer_probe_plain(proj, geoT, max_shift)
-    if geoT.device.type != "cuda":
-        raise ValueError(f"unsupported device {geoT.device}")
     B = cols_padded(proj)
     _cuda.check_tensor("geoT", geoT, (8, B), geoT.device)
     if B > 1024:
         raise ValueError(f"{proj.cols} beams: the kernel holds at most 1024")
     out = torch.empty(8, B, dtype=torch.float32, device=geoT.device)
-    lib = _cuda.load("beam_zbuffer_kernel")
-    with torch.cuda.device(geoT.device):
-        err = lib.beam_zbuffer(geoT.data_ptr(), out.data_ptr(), B, proj.cols, proj.f, proj.c,
-                               proj.range_min, proj.range_max, int(max_shift),
-                               _cuda.stream_of(geoT.device))
-    if err != 0:
-        raise RuntimeError(f"beam_zbuffer_kernel launch failed: {_cuda.error_string(err)}")
+    BEAM_ZBUFFER(geoT.device, geoT.data_ptr(), out.data_ptr(), B, proj.cols, proj.f, proj.c,
+                 proj.range_min, proj.range_max, int(max_shift))
     launches += 1
     return out
 
@@ -99,9 +99,4 @@ def empty_launch(proj: PolarProjection, device=None) -> None:
     """One launch of an empty kernel at the probe's launch shape (one block
     of B threads, the same shared memory; not counted in ``launches``): the
     floor under its device time."""
-    device = torch.device(device or "cuda")
-    with torch.cuda.device(device):
-        err = _cuda.load("beam_zbuffer_kernel").beam_zbuffer_floor(
-            cols_padded(proj), _cuda.stream_of(device))
-    if err != 0:
-        raise RuntimeError(f"beam_zbuffer_floor launch failed: {_cuda.error_string(err)}")
+    BEAM_ZBUFFER_FLOOR(torch.device(device or "cuda"), cols_padded(proj))

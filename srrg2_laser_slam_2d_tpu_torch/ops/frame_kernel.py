@@ -237,6 +237,16 @@ class _FrameParams(ctypes.Structure):
     ]
 
 
+# meas, cache, pose, three outputs, params, stream
+FRAME_TRACK_GRID = _cuda.Entry("frame_kernel", "frame_track_grid", [_cuda.PTR] * 8)
+# terms, out, threads, stream: the frame step's reduction alone (for tests)
+FRAME_BLOCK_SUM13 = _cuda.Entry("frame_kernel", "frame_block_sum13",
+                                [_cuda.PTR, _cuda.PTR, _cuda.INT, _cuda.PTR])
+# the per-phase SM cycles of a -DFRAME_PHASE_TIMING build's last launch
+# (csrc/frame_common.cuh's PHASE_EXPORT, in every kernel: bind it to the build)
+PHASE_CYCLES = _cuda.Entry("frame_kernel", "frame_phase_cycles", [_cuda.PTR], stream=False)
+
+
 def _params(spec: FrameSpec, T: int, K: int = 1, meas_rows: int = 0) -> _FrameParams:
     p = spec.projection
     return _FrameParams(
@@ -262,10 +272,8 @@ def track_frames_grid(spec: FrameSpec, cacheT: torch.Tensor, pose: torch.Tensor,
     kernel; CPU tensors take the plain version."""
     global launches
     _check_spec(spec)
-    if measC.device.type == "cpu":
+    if not _cuda.on_card(measC):
         return track_frames_grid_plain(spec, cacheT, pose, measC)
-    if measC.device.type != "cuda":
-        raise ValueError(f"unsupported device {measC.device}")
     B = spec.cols_padded
     T = measC.shape[0]
     dev = measC.device
@@ -282,16 +290,10 @@ def track_frames_grid(spec: FrameSpec, cacheT: torch.Tensor, pose: torch.Tensor,
     out_cache = torch.empty_like(cacheT)
     out_pose = torch.empty_like(pose)
     payloads = torch.empty((T, 8, B), dtype=torch.float32, device=dev)
-    lib = _cuda.load("frame_kernel")
     params = _params(spec, T, meas_rows=rows)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frame_track_grid(
-            measC.data_ptr(), cacheT.data_ptr(), pose.data_ptr(),
-            out_cache.data_ptr(), out_pose.data_ptr(), payloads.data_ptr(),
-            ctypes.addressof(params), stream)
-    if err != 0:
-        raise RuntimeError(f"frame kernel launch failed: {_cuda.error_string(err)}")
+    FRAME_TRACK_GRID(dev, measC.data_ptr(), cacheT.data_ptr(), pose.data_ptr(),
+                     out_cache.data_ptr(), out_pose.data_ptr(), payloads.data_ptr(),
+                     ctypes.addressof(params))
     launches += 1
     return out_cache, out_pose, payloads
 

@@ -48,6 +48,10 @@ class _MaterializeParams(ctypes.Structure):
                 ("count_dtype", ctypes.c_int)]
 
 
+# payload, old xy, old normal, counts, three outputs, partial table, params, stream
+MATERIALIZE_SCENES = _cuda.Entry("materialize_kernel", "materialize_scenes", [_cuda.PTR] * 10)
+
+
 def materialize_plain(spec, scene: Cloud, payloads: torch.Tensor, final_count) -> Cloud:
     """Plain PyTorch version of ``materialize``."""
     lead = payloads.shape[:-3]
@@ -93,10 +97,8 @@ def materialize(spec, scene: Cloud, payloads: torch.Tensor, final_count) -> Clou
     Neither writes to its inputs."""
     global launches
     dev = payloads.device
-    if dev.type == "cpu":
+    if not _cuda.on_card(payloads):
         return materialize_plain(spec, scene, payloads, final_count)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     lead = payloads.shape[:-3]
     T, C, B = payloads.shape[-3:]
     if payloads.dtype != torch.float32 or C != 8:
@@ -132,14 +134,9 @@ def materialize(spec, scene: Cloud, payloads: torch.Tensor, final_count) -> Clou
         nm_stride=(ctypes.c_longlong * 3)(*nm0.stride()),
         count_stride=counts.stride(0), S=S, T=T, B=B, cap=cap, blocks_per_scene=G,
         count_dtype=0 if counts.dtype == torch.float32 else 1)
-    lib = _cuda.load("materialize_kernel")
-    with torch.cuda.device(dev):
-        err = lib.materialize_scenes(
-            P.data_ptr(), xy0.data_ptr(), nm0.data_ptr(), counts.data_ptr(), xy.data_ptr(),
-            nm.data_ptr(), valid.data_ptr(), 0 if partial is None else partial.data_ptr(),
-            ctypes.addressof(params), _cuda.stream_of(dev))
-    if err != 0:
-        raise RuntimeError(f"materialize kernel launch failed: {_cuda.error_string(err)}")
+    MATERIALIZE_SCENES(dev, P.data_ptr(), xy0.data_ptr(), nm0.data_ptr(), counts.data_ptr(),
+                       xy.data_ptr(), nm.data_ptr(), valid.data_ptr(),
+                       0 if partial is None else partial.data_ptr(), ctypes.addressof(params))
     launches += 1 if G == 1 else 2
     calls[(S, T)] += 1
     return Cloud(xy.reshape(lead + (cap, 2)), nm.reshape(lead + (cap, 2)),

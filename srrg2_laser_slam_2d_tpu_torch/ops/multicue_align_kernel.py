@@ -40,6 +40,15 @@ moving_rows = 0
 fixed_rows = 0
 MAX_CUES = 4
 MAX_MOVING = 4096   # moving rows the kernel packs in shared memory
+_P, _I, _F = _cuda.PTR, _cuda.INT, _cuda.FLOAT
+# fixed (xy, normal, valid, cues, rows), moving (xy, normal, valid, rows), t0,
+# prior, extrinsics, three outputs, params (the frame kernel's), damping,
+# min_corr, stream
+MULTICUE_ALIGN = _cuda.Entry("multicue_align_kernel", "multicue_align",
+                             [_P] * 3 + [_I] * 2 + [_P] * 3 + [_I] + [_P] * 7 + [_F] * 2 + [_P])
+# terms, cues, out, threads, stream: the reduction alone (for tests)
+MULTICUE_BLOCK_SUMS_TEST = _cuda.Entry("multicue_align_kernel", "multicue_block_sums_test",
+                                       [_P, _I, _P, _I, _P])
 
 
 def flops_per_pass(n_cues: int, n_moving: int) -> int:
@@ -152,13 +161,11 @@ def fused_projective_align_multi(proj: PolarProjection, fixed_xy, fixed_normal, 
     the kernel; CPU tensors take the plain version."""
     global launches, moving_rows, fixed_rows
     _check(fixed_xy, iterations)
-    if fixed_xy.device.type == "cpu":
+    if not _cuda.on_card(fixed_xy):
         return fused_projective_align_multi_plain(
             proj, fixed_xy, fixed_normal, fixed_valid, extrinsics, moving_xy, moving_normal,
             moving_valid, initial, odom_prior, iterations, point_distance, normal_cos,
             chi_threshold, min_inliers, min_corr, odom_weight, damping)
-    if fixed_xy.device.type != "cuda":
-        raise ValueError(f"unsupported device {fixed_xy.device}")
     dev = fixed_xy.device
     C, N = fixed_xy.shape[0], fixed_xy.shape[1]
     fxy, fnm, fv = _cuda.cloud_tensors("fixed", fixed_xy.reshape(C * N, 2),
@@ -182,16 +189,10 @@ def fused_projective_align_multi(proj: PolarProjection, fixed_xy, fixed_normal, 
     params.B = B
     out = torch.empty(8 + 4 * MAX_ITERATIONS, dtype=torch.float32, device=dev)
     base = out.data_ptr()
-    lib = _cuda.load("multicue_align_kernel")
-    with torch.cuda.device(dev):
-        err = lib.multicue_align(
-            fxy.data_ptr(), fnm.data_ptr(), fv.data_ptr(), C, N,
-            mxy.data_ptr(), mnm.data_ptr(), mv.data_ptr(), mxy.shape[0],
-            t0.data_ptr(), prior.data_ptr(), extr.data_ptr(), base, base + 16, base + 32,
-            ctypes.addressof(params), float(damping), float(max(min_corr, 1)),
-            _cuda.stream_of(dev))
-    if err != 0:
-        raise RuntimeError(f"multicue_align_kernel launch failed: {_cuda.error_string(err)}")
+    MULTICUE_ALIGN(dev, fxy.data_ptr(), fnm.data_ptr(), fv.data_ptr(), C, N,
+                   mxy.data_ptr(), mnm.data_ptr(), mv.data_ptr(), mxy.shape[0],
+                   t0.data_ptr(), prior.data_ptr(), extr.data_ptr(), base, base + 16, base + 32,
+                   ctypes.addressof(params), float(damping), float(max(min_corr, 1)))
     launches += 1
     moving_rows += mxy.shape[0]
     fixed_rows += C * N

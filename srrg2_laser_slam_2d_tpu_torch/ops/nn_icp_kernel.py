@@ -203,6 +203,9 @@ class _NNParams(ctypes.Structure):
     ]
 
 
+# fixed, moving, initials, two outputs, params, stream
+NN_ICP_ALIGN_PAIRS = _cuda.Entry("nn_icp_kernel", "nn_icp_align_pairs", [_cuda.PTR] * 7)
+
 MAX_MOVING = 1024   # 256 threads x 4 points
 MAX_FIXED = 4096    # 8 rows of F floats in shared memory
 
@@ -226,14 +229,8 @@ def _launch(fixedP, movingP, initials, iterations, max_distance2, normal_cos,
                        refresh=max(int(corr_refresh), 1), tile_f=TILE_F,
                        max_distance2=max_distance2, normal_cos=normal_cos,
                        chi_threshold=chi_threshold, min_inliers=float(min_inliers))
-    lib = _cuda.load("nn_icp_kernel")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nn_icp_align_pairs(
-            fixedP.data_ptr(), movingP.data_ptr(), initials.data_ptr(),
-            est.data_ptr(), stats.data_ptr(), ctypes.addressof(params), stream)
-    if err != 0:
-        raise RuntimeError(f"NN-ICP kernel launch failed: {_cuda.error_string(err)}")
+    NN_ICP_ALIGN_PAIRS(dev, fixedP.data_ptr(), movingP.data_ptr(), initials.data_ptr(),
+                       est.data_ptr(), stats.data_ptr(), ctypes.addressof(params))
     launches += 1
     return est, stats
 
@@ -251,10 +248,8 @@ def fused_align_pairs(fixed: Cloud, moving: Cloud, initials: torch.Tensor,
     initials = initials.to(torch.float32).contiguous()
     args = (iterations, float(max_distance) ** 2, float(normal_cos),
             float(chi_threshold), int(min_inliers), int(corr_refresh))
-    if fixedP.device.type == "cpu":
-        est, stats = fused_align_pairs_plain(fixedP, movingP, initials, *args)
-    elif fixedP.device.type == "cuda":
+    if _cuda.on_card(fixedP):
         est, stats = _launch(fixedP, movingP, initials, *args)
     else:
-        raise ValueError(f"unsupported device {fixedP.device}")
+        est, stats = fused_align_pairs_plain(fixedP, movingP, initials, *args)
     return _result(est, stats)

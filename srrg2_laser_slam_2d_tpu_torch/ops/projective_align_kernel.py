@@ -30,6 +30,10 @@ from .projector_kernel import cols_padded
 launches = 0
 MAX_ITERATIONS = 128
 MAX_BEAMS = 1024          # padded beams: one block of at most 1,024 lanes
+# fixed (xy, normal, valid, rows), moving (xy, normal, valid, rows), t0, prior,
+# three outputs, params (the frame kernel's), stream: both aligners' C interface
+ALIGN_ARGS = ([_cuda.PTR] * 3 + [_cuda.INT]) * 2 + [_cuda.PTR] * 7
+PROJECTIVE_ALIGN = _cuda.Entry("projective_align_kernel", "projective_align", ALIGN_ARGS)
 
 
 class ProjAlignResult(NamedTuple):
@@ -152,26 +156,18 @@ def aligner_inputs(spec: FrameSpec, B: int, fixed, moving, initial, prior, devic
     return fxy, fnm, fv, mxy, mnm, mv, t0, prior_t
 
 
-def launch_aligner(lib_name: str, fn_name: str, spec: FrameSpec, B: int, fixed, moving,
-                   initial, prior) -> ProjAlignResult:
+def launch_aligner(entry: _cuda.Entry, spec: FrameSpec, B: int, fixed, moving, initial,
+                   prior) -> ProjAlignResult:
     """Launch one of the two aligner kernels (they share a C interface)."""
     dev = fixed[0].device
     fxy, fnm, fv, mxy, mnm, mv, t0, prior_t = aligner_inputs(spec, B, fixed, moving, initial,
                                                              prior, dev)
     out = torch.empty(8 + 4 * MAX_ITERATIONS, dtype=torch.float32, device=dev)
     base = out.data_ptr()
-    args = (fxy.data_ptr(), fnm.data_ptr(), fv.data_ptr(), fxy.shape[0],
-            mxy.data_ptr(), mnm.data_ptr(), mv.data_ptr(), mxy.shape[0],
-            t0.data_ptr(), prior_t.data_ptr(), base, base + 16, base + 32,
-            ctypes.addressof(_launch_params(spec, B)), _cuda.stream_of(dev))
-    fn = getattr(_cuda.load(lib_name), fn_name)
-    if dev.index == torch.cuda.current_device():   # no device guard where it is current
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{lib_name} launch failed: {_cuda.error_string(err)}")
+    entry(dev, fxy.data_ptr(), fnm.data_ptr(), fv.data_ptr(), fxy.shape[0],
+          mxy.data_ptr(), mnm.data_ptr(), mv.data_ptr(), mxy.shape[0],
+          t0.data_ptr(), prior_t.data_ptr(), base, base + 16, base + 32,
+          ctypes.addressof(_launch_params(spec, B)))
     iters = out[8:].reshape(4, MAX_ITERATIONS)[:, : spec.iterations].T
     return ProjAlignResult(out[0:3], out[4], out[5], out[6], out[7], iters)
 
@@ -187,17 +183,15 @@ def fused_projective_align(proj: PolarProjection, fixed_xy, fixed_normal, fixed_
     version."""
     global launches
     check_iterations(iterations)
-    if fixed_xy.device.type == "cpu":
+    if not _cuda.on_card(fixed_xy):
         return fused_projective_align_plain(
             proj, fixed_xy, fixed_normal, fixed_valid, moving_xy, moving_normal,
             moving_valid, initial, odom_prior, iterations, point_distance, normal_cos,
             chi_threshold, min_inliers, odom_weight)
-    if fixed_xy.device.type != "cuda":
-        raise ValueError(f"unsupported device {fixed_xy.device}")
     spec = align_spec(proj, iterations, point_distance, normal_cos, chi_threshold,
                       min_inliers, odom_weight)
-    res = launch_aligner("projective_align_kernel", "projective_align", spec,
-                         cols_padded(proj), (fixed_xy, fixed_normal, fixed_valid),
+    res = launch_aligner(PROJECTIVE_ALIGN, spec, cols_padded(proj),
+                         (fixed_xy, fixed_normal, fixed_valid),
                          (moving_xy, moving_normal, moving_valid), initial,
                          initial if odom_prior is None else odom_prior)
     launches += 1

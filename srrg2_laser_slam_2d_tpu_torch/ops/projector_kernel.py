@@ -64,6 +64,10 @@ class _ProjectorParams(ctypes.Structure):
                 ("clouds", ctypes.c_int), ("cluster", ctypes.c_int)]
 
 
+# xy, valid, depth, idx, has, params, stream
+PROJECT_LOCAL = _cuda.Entry("projector_kernel", "project_local", [_cuda.PTR] * 7)
+
+
 def _plain_one(proj: PolarProjection, xy: torch.Tensor, valid: torch.Tensor) -> Canvas:
     n = xy.shape[0]
     d, colf, ok = bk.beam_fields(xy[:, 0], xy[:, 1], valid, proj)
@@ -96,10 +100,8 @@ def project_local(proj: PolarProjection, xy: torch.Tensor, valid: torch.Tensor) 
     empty), valid [..., cols]. CUDA tensors launch the kernel once for the
     whole batch; CPU tensors take the plain version."""
     global launches
-    if xy.device.type == "cpu":
+    if not _cuda.on_card(xy):
         return project_local_plain(proj, xy, valid)
-    if xy.device.type != "cuda":
-        raise ValueError(f"unsupported device {xy.device}")
     dev = xy.device
     batch, n = xy.shape[:-2], xy.shape[-2]
     if xy.dtype != torch.float32 or xy.shape[-1] != 2 or valid.dtype != torch.bool \
@@ -120,12 +122,8 @@ def project_local(proj: PolarProjection, xy: torch.Tensor, valid: torch.Tensor) 
         return Canvas(depth, idx, has)
     params = _ProjectorParams(n, B, proj.cols, proj.f, proj.c, proj.range_min, proj.range_max,
                               clouds, cluster_blocks(n))
-    with torch.cuda.device(dev):
-        err = _cuda.load("projector_kernel").project_local(
-            xy.data_ptr(), valid.data_ptr(), depth.data_ptr(), idx.data_ptr(), has.data_ptr(),
-            ctypes.addressof(params), _cuda.stream_of(dev))
-    if err != 0:
-        raise RuntimeError(f"projector kernel launch failed: {_cuda.error_string(err)}")
+    PROJECT_LOCAL(dev, xy.data_ptr(), valid.data_ptr(), depth.data_ptr(), idx.data_ptr(),
+                  has.data_ptr(), ctypes.addressof(params))
     launches += 1
     calls[(n, clouds)] += 1
     return Canvas(depth, idx, has)

@@ -50,6 +50,10 @@ class _SceneParams(ctypes.Structure):
                 ("cluster", ctypes.c_int)]
 
 
+# xy, normal, valid, camera, out, rows, params, stream
+SCENE_CANVAS = _cuda.Entry("scene_kernel", "scene_canvas", [_cuda.PTR] * 8)
+
+
 def _effective_chunk(n: int, chunk: int) -> int:
     """The chunk length the scan uses: ``chunk`` rows, or the whole cloud
     rounded up to it when the cloud is shorter."""
@@ -95,10 +99,8 @@ def canvas(proj: PolarProjection, cloud: Cloud, camera_pose: torch.Tensor,
     -1 where empty), B the beam count padded to 128. CUDA tensors launch
     the kernel; CPU tensors take the plain version."""
     global launches
-    if cloud.xy.device.type == "cpu":
+    if not _cuda.on_card(cloud.xy):
         return canvas_plain(proj, cloud, camera_pose, chunk)
-    if cloud.xy.device.type != "cuda":
-        raise ValueError(f"unsupported device {cloud.xy.device}")
     dev = cloud.xy.device
     xy, nm, valid = _cuda.cloud_tensors("cloud", cloud.xy, cloud.normal, cloud.valid, dev)
     cam = camera_pose.to(torch.float32).contiguous()
@@ -112,13 +114,8 @@ def canvas(proj: PolarProjection, cloud: Cloud, camera_pose: torch.Tensor,
     params = _SceneParams(n=n, B=B, cols=proj.cols, chunk=_effective_chunk(n, chunk),
                           f=proj.f, c=proj.c, range_min=proj.range_min,
                           range_max=proj.range_max, cluster=cluster_blocks(n))
-    lib = _cuda.load("scene_kernel")
-    with torch.cuda.device(dev):
-        err = lib.scene_canvas(xy.data_ptr(), nm.data_ptr(), valid.data_ptr(), cam.data_ptr(),
-                               out.data_ptr(), rows.data_ptr(), ctypes.addressof(params),
-                               _cuda.stream_of(dev))
-    if err != 0:
-        raise RuntimeError(f"scene kernel launch failed: {_cuda.error_string(err)}")
+    SCENE_CANVAS(dev, xy.data_ptr(), nm.data_ptr(), valid.data_ptr(), cam.data_ptr(),
+                 out.data_ptr(), rows.data_ptr(), ctypes.addressof(params))
     launches += 1
     calls[(n, 1)] += 1
     return out, rows

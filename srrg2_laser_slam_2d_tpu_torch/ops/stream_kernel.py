@@ -223,6 +223,10 @@ def track_streams_grid_plain(spec: FrameSpec, cacheB, poseB, measC_stack, odom_s
 
 # ------------------------------------------------------------ CUDA kernel
 
+# measC, odom, cache, pose, three outputs, params (the frame kernel's), stream
+STREAM_TRACK_GRID = _cuda.Entry("stream_kernel", "stream_track_grid", [_cuda.PTR] * 9)
+
+
 @profiling.span("stream.track_streams_grid")
 def track_streams_grid(spec: FrameSpec, cacheB: torch.Tensor, poseB: torch.Tensor,
                        measC_stack: torch.Tensor, odom_stack: torch.Tensor):
@@ -231,10 +235,8 @@ def track_streams_grid(spec: FrameSpec, cacheB: torch.Tensor, poseB: torch.Tenso
     tensors launch the kernel; CPU tensors take the plain version."""
     global launches
     _check_spec(spec)
-    if measC_stack.device.type == "cpu":
+    if not _cuda.on_card(measC_stack):
         return track_streams_grid_plain(spec, cacheB, poseB, measC_stack, odom_stack)
-    if measC_stack.device.type != "cuda":
-        raise ValueError(f"unsupported device {measC_stack.device}")
     B = spec.cols_padded
     T, _, K, _ = measC_stack.shape
     dev = measC_stack.device
@@ -252,16 +254,10 @@ def track_streams_grid(spec: FrameSpec, cacheB: torch.Tensor, poseB: torch.Tenso
     out_cache = torch.empty_like(cacheB)
     out_pose = torch.empty_like(poseB)
     payloads = torch.empty((T, 8, K, B), dtype=torch.float32, device=dev)
-    lib = _cuda.load("stream_kernel")
     params = _params(spec, T, K)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.stream_track_grid(
-            measC_stack.data_ptr(), odom_stack.data_ptr(), cacheB.data_ptr(),
-            poseB.data_ptr(), out_cache.data_ptr(), out_pose.data_ptr(),
-            payloads.data_ptr(), ctypes.addressof(params), stream)
-    if err != 0:
-        raise RuntimeError(f"stream kernel launch failed: {_cuda.error_string(err)}")
+    STREAM_TRACK_GRID(dev, measC_stack.data_ptr(), odom_stack.data_ptr(), cacheB.data_ptr(),
+                      poseB.data_ptr(), out_cache.data_ptr(), out_pose.data_ptr(),
+                      payloads.data_ptr(), ctypes.addressof(params))
     launches += 1
     return out_cache, out_pose, payloads
 

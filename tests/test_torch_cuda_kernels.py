@@ -293,23 +293,32 @@ def test_stream_kernel_matches_plain_on_card(card, gather, refresh, iterations, 
             np.testing.assert_allclose(kp[k, 0:8].cpu().numpy(), sp[0].cpu().numpy(), atol=1e-6)
 
 
+def test_a_refused_launch_raises_with_its_entry_point_and_cuda_error_on_card(card):
+    """A non-zero return raises RuntimeError naming the library, the entry
+    point, the code and CUDA's text for it (read without another kernel's
+    library); the next launch runs."""
+    from srrg2_laser_slam_2d_tpu_torch.ops import beam_zbuffer_kernel as bzk
+
+    with pytest.raises(RuntimeError, match=r"^beam_zbuffer_kernel\.beam_zbuffer_floor launch "
+                                           r"failed: 1 \(invalid argument\)$"):
+        bzk.BEAM_ZBUFFER_FLOOR(card, 100)   # B not a multiple of 128: cudaErrorInvalidValue
+    bzk.BEAM_ZBUFFER_FLOOR(card, 128)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("threads", [64, 256, 352, 768, 1024])
 def test_block_sums_are_bit_identical_across_warps_on_card(card, threads):
     """The frame step's reduction (block_sum13 of csrc/frame_common.cuh),
     which every thread of the frame kernels uses to solve for the pose: all
     threads, in every warp, hold the same 13 totals bit for bit, from either
     half of its double buffer; the totals agree with a float64 sum."""
-    from srrg2_laser_slam_2d_tpu_torch.ops import _cuda
-
     rng = np.random.default_rng(threads)
     terms = (rng.normal(size=(threads, 13))
              * 10.0 ** rng.integers(-3, 4, (threads, 13))).astype(np.float32)
     out = torch.empty(2, threads, 13, device=card)
-    err = _cuda.load("frame_kernel").frame_block_sum13(
-        torch.from_numpy(terms).to(card).data_ptr(), out.data_ptr(), threads,
-        torch.cuda.current_stream().cuda_stream)
+    fk.FRAME_BLOCK_SUM13(card, torch.from_numpy(terms).to(card).data_ptr(), out.data_ptr(),
+                         threads)   # raises unless the launch returned 0
     torch.cuda.synchronize()
-    assert err == 0
     o = out.cpu().numpy()
     bits = o.view(np.uint32)
     assert (bits == bits[:, :1]).all(), "threads disagree on the totals"
@@ -326,17 +335,15 @@ def test_multicue_block_sums_are_bit_identical_across_warps_on_card(card, cues, 
     the kernel's warp 0 calls): every warp that takes the totals gets the
     same 13 C totals bit for bit, twice over; they agree with a float64
     sum."""
-    from srrg2_laser_slam_2d_tpu_torch.ops import _cuda
+    from srrg2_laser_slam_2d_tpu_torch.ops import multicue_align_kernel as mak
 
     rng = np.random.default_rng(cues * threads)
     terms = (rng.normal(size=(threads, cues, 13))
              * 10.0 ** rng.integers(-3, 4, (threads, cues, 13))).astype(np.float32)
     out = torch.empty(2, threads, cues, 13, device=card)
-    err = _cuda.load("multicue_align_kernel").multicue_block_sums_test(
-        torch.from_numpy(terms).to(card).data_ptr(), cues, out.data_ptr(), threads,
-        torch.cuda.current_stream().cuda_stream)
+    mak.MULTICUE_BLOCK_SUMS_TEST(card, torch.from_numpy(terms).to(card).data_ptr(), cues,
+                                 out.data_ptr(), threads)   # raises unless it returned 0
     torch.cuda.synchronize()
-    assert err == 0
     o = out.cpu().numpy()
     bits = o.view(np.uint32)
     assert (bits == bits[:, :1]).all(), "threads disagree on the totals"
