@@ -8,7 +8,10 @@ calls as ``Entry`` objects beside its parameter struct's mirror; calling
 one is the whole host side of a launch. A wrapper takes its route by
 ``on_card``: CPU tensors take the plain version, CUDA tensors the kernel.
 A build takes seconds; nothing is built at import time. The C entry points
-return a ``cudaError_t`` (0 = success).
+return a ``cudaError_t`` (0 = success). A wrapper's counters are its
+module-level ints and Counters whose names start with a lowercase letter;
+``counters``, ``counter_moves`` and ``count_again`` keep them true for a
+CUDA graph, which launches at each replay what its capture counted once.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 import tempfile
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -167,6 +172,41 @@ def on_card(t: torch.Tensor) -> bool:
     if t.device.type != "cpu":
         raise ValueError(f"unsupported device {t.device}")
     return False
+
+
+def counters() -> dict:
+    """Every counter of the loaded kernel wrappers (``ops/<name>.py`` for
+    each ``KERNELS`` source), by (module, name); Counters are copied."""
+    out = {}
+    for name in KERNELS:
+        mod = sys.modules.get(f"{__package__}.{name}")
+        for k, v in vars(mod).items() if mod is not None else ():
+            if k[:1].islower() and (type(v) is int or isinstance(v, Counter)):
+                out[mod, k] = Counter(v) if isinstance(v, Counter) else v
+    return out
+
+
+def counter_moves(before: dict) -> dict:
+    """What each counter moved since ``counters()`` gave ``before`` (those
+    that moved only)."""
+    moves = {}
+    for (mod, k), v in counters().items():
+        if isinstance(v, Counter):
+            d = v - before.get((mod, k), Counter())
+        else:
+            d = v - before.get((mod, k), 0)
+        if d:
+            moves[mod, k] = d
+    return moves
+
+
+def count_again(moves: dict) -> None:
+    """Add ``counter_moves``' result to the counters once more."""
+    for (mod, k), d in moves.items():
+        if isinstance(d, Counter):
+            getattr(mod, k).update(d)
+        else:
+            setattr(mod, k, getattr(mod, k) + d)
 
 
 def check_tensor(name: str, t, shape: tuple, device) -> None:

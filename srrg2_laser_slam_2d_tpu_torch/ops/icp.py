@@ -11,6 +11,13 @@ batched call. ``AlignerConfig.finder`` picks the correspondence finder:
 ``projective`` (beam space), ``nn_grid`` (a jump-flooded nearest field,
 built once per ``align`` call) or ``bruteforce`` (exact bounded nearest
 neighbour), the last two in ``ops/correspond.py``.
+
+On the card ``align`` replays a captured CUDA graph of its whole iteration
+chain where the chain has no host read (``graph_route``) and its shapes
+have been seen before: one launch in place of some 7,600 small PyTorch
+kernels at the loop detector's 30 iterations. The graph runs the very
+kernels the eager body (``_align_eager``) runs, in the same order, so both
+routes give the same bits on one card.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from ..utils import cloud as cloud_lib
 from ..utils import geometry
 from ..utils.cloud import Cloud
+from . import _cuda
 from . import projector as projector_op
 from .projector import Canvas, PolarProjection
 
@@ -243,11 +251,110 @@ def align_multi(cfg: AlignerConfig, proj: PolarProjection, fixed_cues: Cloud,
     return _iterate(cfg, iteration, initial)
 
 
+# ``align``'s card calls, module globals, always on: graphs captured (a
+# key's second call), calls served by replaying a captured graph, and calls
+# run eagerly (those the route rule sends to eager mode and a key's first)
+graph_captures = 0
+graph_replays = 0
+eager_card_calls = 0
+
+
+def graph_route(cfg: AlignerConfig, device: torch.device) -> bool:
+    """Whether ``align`` may replay a captured graph: on a CUDA device, with
+    the projective finder (the grid finder builds its field per call) and
+    without ``epsilon`` (whose stop test reads the device every
+    iteration). Every other call runs eagerly."""
+    return device.type == "cuda" and cfg.finder == "projective" and cfg.epsilon is None
+
+
 def align(cfg: AlignerConfig, proj: PolarProjection, fixed: Cloud, moving: Cloud,
           initial: torch.Tensor, odom_prior: torch.Tensor | None = None) -> AlignResult:
     """Full multi-iteration alignment; ``initial`` and the estimate are
     moving-in-fixed poses [..., 3]. ``fixed`` carries the batch dimensions
     of ``initial``; ``moving`` may have none and is then shared."""
+    global eager_card_calls
+    if graph_route(cfg, initial.device):
+        return _align_graphed(cfg, proj, fixed, moving, initial, odom_prior)
+    if initial.device.type == "cuda":
+        eager_card_calls += 1
+    return _align_eager(cfg, proj, fixed, moving, initial, odom_prior)
+
+
+class _Captured(NamedTuple):
+    """One captured ``_align_eager`` call: the graph, its static inputs
+    (fixed xy, normal, valid; moving xy, normal, valid; initial; the prior
+    where given) and result, and what the capture moved of the kernel
+    wrappers' counters (``_cuda.counter_moves``)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    result: AlignResult
+    counted: dict
+
+
+# by key: a key's captured call, or None once its first call has run
+# eagerly. Nothing is evicted: each caller repeats a few shapes (every card
+# path of ``chip_smoke.py`` in one process makes 24 keys, 15 of them twice
+# or more, each graph holding one call's memory)
+_GRAPHS: dict = {}
+
+
+def _capture(cfg: AlignerConfig, proj: PolarProjection, inputs: tuple) -> _Captured:
+    """Copy ``inputs`` into static buffers, run ``_align_eager`` on them
+    once on a side stream (lazy set-up stays out of the graph), then capture
+    it. The graph is not run yet."""
+    static = tuple(t.clone(memory_format=torch.contiguous_format) for t in inputs)
+
+    def call() -> AlignResult:
+        return _align_eager(cfg, proj, Cloud(*static[:3]), Cloud(*static[3:6]), static[6],
+                            static[7] if len(static) > 7 else None)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _cuda.counters()
+    with torch.cuda.graph(graph):
+        result = call()
+    return _Captured(graph, static, result, _cuda.counter_moves(before))
+
+
+def _align_graphed(cfg: AlignerConfig, proj: PolarProjection, fixed: Cloud, moving: Cloud,
+                   initial: torch.Tensor, odom_prior: torch.Tensor | None) -> AlignResult:
+    """``_align_eager`` by key: the key's first call runs eagerly, its
+    second captures a graph and replays it, and every later call replays
+    it. A shape seen once costs no capture. The key: the configuration, the
+    projection, the z-buffer backend, the TF32 setting and every input's
+    shape, type and device (so the batch, both capacities and the prior's
+    presence). A replay copies the inputs into the key's buffers and returns
+    a copy of the result (the next replay overwrites the graph's)."""
+    global graph_captures, graph_replays, eager_card_calls
+    inputs = (*fixed, *moving, initial) + (() if odom_prior is None else (odom_prior,))
+    key = (cfg, proj, projector_op.ZBUFFER_BACKEND, torch.backends.cuda.matmul.allow_tf32,
+           tuple((t.shape, t.dtype, t.device) for t in inputs))
+    if key not in _GRAPHS:
+        _GRAPHS[key] = None
+        eager_card_calls += 1
+        return _align_eager(cfg, proj, fixed, moving, initial, odom_prior)
+    with torch.cuda.device(initial.device):
+        entry = _GRAPHS[key]
+        if entry is None:
+            entry = _GRAPHS[key] = _capture(cfg, proj, inputs)
+            graph_captures += 1
+        else:
+            for buf, t in zip(entry.inputs, inputs):
+                buf.copy_(t)
+            _cuda.count_again(entry.counted)
+            graph_replays += 1
+        entry.graph.replay()
+        return AlignResult(*(t.clone() for t in entry.result))
+
+
+def _align_eager(cfg: AlignerConfig, proj: PolarProjection, fixed: Cloud, moving: Cloud,
+                 initial: torch.Tensor, odom_prior: torch.Tensor | None = None) -> AlignResult:
+    """``align``'s body, one PyTorch operation at a time."""
     batch = initial.shape[:-1]
     if moving.xy.dim() == 2 and batch:
         moving = moving.map(lambda x: x.expand(batch + x.shape))
